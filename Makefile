@@ -20,7 +20,7 @@ test-cpp:        ## native C++ unit tests (role parity with the reference GTest 
 		src/cpp/pde_host_test.cpp -o build/pde_host_test
 	./build/pde_host_test
 
-bench:           ## headline benchmark (runs on the attached TPU)
+bench:           ## headline benchmark (needs an NVIDIA GPU)
 	python bench.py
 
 dryrun:          ## multi-chip sharding dry run on an 8-device virtual mesh

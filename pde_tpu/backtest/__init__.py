@@ -1,4 +1,4 @@
-"""Backtesting: event-driven engine + vectorized TPU fast path + analysis."""
+"""Backtesting: event-driven engine + vectorized device fast path + analysis."""
 
 from . import analysis, data_handler, engine, events, execution, metrics, portfolio, strategy, vectorized  # noqa: F401
 from .data_handler import ArrayDataHandler, SyntheticDataHandler  # noqa: F401

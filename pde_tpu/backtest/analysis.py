@@ -6,7 +6,7 @@ decay (:159-535), Monte-Carlo resampling of strategy returns with
 shuffle/block/parametric modes (:631-841), and parameter sensitivity
 (:843-957).
 
-TPU shape: every in-sample parameter grid evaluates as ONE vmapped launch
+Device shape: every in-sample parameter grid evaluates as ONE vmapped launch
 (pde_tpu.backtest.vectorized) and all Monte-Carlo paths draw/evaluate as a
 single batched program with ``jax.random`` — the reference loops both.
 """

@@ -1,7 +1,7 @@
 """Strategy/parameter optimization: sector fitness search and rolling
 re-optimization.
 
-Covers the reference's three optimizer modules in TPU-native form:
+Covers the reference's three optimizer modules in device-native (JAX) form:
 
 * multi_strategy.py:32-434 — the five sub-signal families (momentum, MA
   crossover, mean reversion, RSI, Bollinger) exposed as vectorized position
@@ -188,7 +188,7 @@ class StrategyOptimizer:
             combos = list(itertools.product(*spec["grid"].values()))
             # dispatch every combo asynchronously; ONE device pull at the end
             # (per-combo float() syncs would serialize the grid on transfer
-            # latency — ruinous on a remote-tunnelled device)
+            # latency)
             evals = [
                 (dict(zip(keys, combo)),
                  backtest_positions(p, spec["fn"](p, **dict(zip(keys, combo))),

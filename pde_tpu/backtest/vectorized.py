@@ -1,4 +1,4 @@
-"""Vectorized array backtester — the TPU fast path.
+"""Vectorized array backtester — the device fast path.
 
 The reference's strategy math (z-scores, moving averages, momentum) runs
 per-bar inside the event loop; here the equivalent computation is a pure

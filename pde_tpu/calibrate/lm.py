@@ -55,7 +55,8 @@ def levenberg_marquardt(
     eye = jnp.eye(n, dtype=x0.dtype)
     # The scipy-convention defaults (1e-10) are unreachable in float32, where
     # relative cost improvements bottom out near machine epsilon (~1.2e-7) —
-    # on the TPU speed path the march would always report converged=False.
+    # on the float32 device path the march would always report
+    # converged=False.
     # Floor the tolerances at a small multiple of the working precision.
     eps = float(jnp.finfo(x0.dtype).eps)
     ftol = max(ftol, 4.0 * eps)
@@ -71,12 +72,11 @@ def levenberg_marquardt(
     def normal_eqs(x):
         r = residual_fn(x)
         J = jax.jacfwd(residual_fn)(x)
-        # HIGHEST precision: on TPU the default f32 matmul runs the MXU in
-        # bfloat16 (8 mantissa bits) — at the Jacobians' 1e8-ish condition
+        # HIGHEST precision: a GPU may run a default-precision f32 matmul
+        # in TF32 (10 mantissa bits) — at the Jacobians' 1e8-ish condition
         # numbers that turns J^T J into noise and the march stalls far from
-        # the optimum (observed: the same start that reaches 1e-3 cost on
-        # CPU-f32 plateaued at 5e-2 on the chip).  The matrices are tiny, so
-        # full-precision accumulation costs nothing.
+        # the optimum.  The matrices are tiny, so full-precision
+        # accumulation costs nothing.
         hi = jax.lax.Precision.HIGHEST
         JTJ = jnp.matmul(J.T, J, precision=hi)
         JTr = jnp.matmul(J.T, r, precision=hi)

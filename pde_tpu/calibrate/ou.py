@@ -1,4 +1,4 @@
-"""OU fitter — analytical MLE + diagnostics + optimal boundaries, TPU-native.
+"""OU fitter — analytical MLE + diagnostics + optimal boundaries.
 
 Mirrors the reference OUFitter (calibration/ou_fitter.py): the OLS-based
 analytical MLE (:246-294, slope clipped to [0.001, 0.999], ddof=1 residual

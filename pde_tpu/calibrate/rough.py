@@ -46,7 +46,7 @@ class RoughCalibrationResult:
 
 def _best_of_starts(residuals, x0s, lower, upper, max_iter):
     """Multistart LM: run the same bounded LM from every row of ``x0s`` and
-    keep the lowest-cost run.  The float32 TPU path needs this — a single
+    keep the lowest-cost run.  The float32 device path needs this — a single
     LM can stall in a bad damping cycle from an unlucky start (observed:
     the same start that reaches 1e-3 on CPU-f32 plateaued at 5e-2 on the
     chip), and the classic calibrator's pipeline is multistart for the
@@ -193,7 +193,7 @@ class RoughHestonCalibrator:
     @staticmethod
     def _start(x0, classic_params):
         """Bank of LM starts (k, 6): the primary guess plus deterministic
-        H / mean-reversion variations — multistart keeps the f32 TPU path
+        H / mean-reversion variations — multistart keeps the f32 device path
         out of single-run damping stalls."""
         if x0 is not None:
             primary = [x0.hurst, x0.lam, x0.theta, x0.nu, x0.rho, x0.v0]

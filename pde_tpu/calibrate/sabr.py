@@ -1,4 +1,4 @@
-"""SABR smile calibration — per-maturity (alpha, rho, nu) fits, TPU-native.
+"""SABR smile calibration — per-maturity (alpha, rho, nu) fits.
 
 Mirrors the reference SABRCalibrator (calibration/sabr_calibrator.py): beta
 fixed (default 0.5), weighted least-squares smile fit per maturity with an
@@ -161,8 +161,7 @@ class SABRCalibrator:
             upper,
             beta=self.beta,
         )
-        # one batched device->host pull (per-output pulls pay a full RTT
-        # each on remote-tunnelled TPUs)
+        # one batched device->host pull, not one per output
         x, rmse, conv = jax.device_get((x, rmse, conv))
         params = SABRParams(alpha=float(x[0]), beta=self.beta, rho=float(x[1]), nu=float(x[2]))
         self._last_converged = bool(conv)
@@ -287,7 +286,7 @@ class SABRCalibrator:
     ):
         """Fit a rectangular surface: strikes (M, K), vols (M, K), forwards
         (M,), maturities (M,) — ALL maturities in one vmapped jitted call.
-        This is the TPU fast path the per-maturity Python loop can't reach.
+        This is the device fast path the per-maturity Python loop can't reach.
         """
         M, Kn = strikes.shape
         lower = jnp.array([self.bounds["alpha"][0], self.bounds["rho"][0], self.bounds["nu"][0]])

@@ -3,7 +3,7 @@
 Mirrors the reference config.py: the dataclass tree (Database / Model /
 Trading / Backtest / Logging, :20-112), the precedence rules of load_config
 (:237-273, reference env prefix ``QT_``; ours is ``PDE_``) and save/load.
-Adds a ComputeConfig for the TPU-specific knobs (mesh shape, precision,
+Adds a ComputeConfig for the accelerator knobs (mesh shape, precision,
 quadrature grid) which have no reference counterpart.
 """
 
@@ -114,7 +114,7 @@ class LoggingConfig:
 
 @dataclass
 class ComputeConfig:
-    """TPU-specific knobs (no reference counterpart)."""
+    """Accelerator knobs (no reference counterpart)."""
 
     mesh_shape: Optional[Tuple[int, int]] = None  # (dp, quotes); None = auto
     enable_x64: bool = False  # parity mode (CPU); speed path is f32

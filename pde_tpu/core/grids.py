@@ -1,6 +1,6 @@
 """Functional spatial grids for PDE solvers.
 
-TPU-first redesign of the reference's ``Grid1D``/``Grid2D`` classes
+Functional redesign of the reference's ``Grid1D``/``Grid2D`` classes
 (reference: src/cpp/solvers/pde_core.hpp:31-180).  Instead of stateful grid
 objects, grids here are plain jnp arrays produced by pure constructors, and
 lookup/interpolation are pure functions that are jit/vmap-compatible

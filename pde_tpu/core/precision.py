@@ -5,7 +5,7 @@ Two operating modes:
 * **parity** (float64/complex128): used by the CPU test-suite to reproduce the
   C++ reference (``/root/reference`` src/cpp) to 1e-8 price / 1e-6 implied-vol
   tolerance.  Requires ``jax_enable_x64`` (the test conftest enables it).
-* **speed** (float32/complex64): the TPU production path.  bfloat16 is used
+* **speed** (float32/complex64): the device production path.  bfloat16 is used
   only inside selected Pallas kernels; the Carr-Madan quadrature and the
   tridiagonal solves keep float32 accumulation.
 

@@ -8,11 +8,11 @@ pricers (:mod:`pde_tpu.models.heston_mc`), cutting the error of smooth path
 integrands from the O(N^-1/2) Monte Carlo rate toward the O(N^-1 log^d N)
 QMC rate at identical path counts.
 
-TPU-native design
+Device-native design
 -----------------
 Direction numbers are a tiny host-side table (``(dim, 32)`` uint32, from
 scipy's Joe-Kuo data, fetched once per dimension and cached).  Everything
-else runs on device as integer VPU work:
+else runs on device as integer vector work:
 
 * **point generation** — the Gray-code construction ``x_i = XOR of V[:,k]
   over set bits k of gray(i)`` is a 32-iteration ``lax.scan`` of masked XORs

@@ -1,4 +1,4 @@
-"""Bates (1996) stochastic-volatility jump-diffusion model, TPU-native.
+"""Bates (1996) stochastic-volatility jump-diffusion model.
 
 Heston dynamics plus lognormal Merton-style jumps:
 

@@ -1,6 +1,6 @@
 """Black-Scholes closed forms and vectorized implied volatility.
 
-TPU-native redesign of the reference's two BS stacks:
+JAX redesign of the reference's two BS stacks:
 
 * the C++ internals used for Heston implied vol
   (src/cpp/models/heston.cpp:275-349), and

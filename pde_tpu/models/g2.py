@@ -1,4 +1,4 @@
-"""G2++ two-factor Gaussian short-rate model, TPU-native.
+"""G2++ two-factor Gaussian short-rate model.
 
 ``r(t) = x(t) + y(t) + phi(t)`` with two correlated constant-coefficient
 OU factors

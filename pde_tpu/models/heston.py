@@ -1,4 +1,4 @@
-"""Heston (1993) stochastic-volatility model, TPU-native.
+"""Heston (1993) stochastic-volatility model.
 
 Redesign of the reference C++ engine (src/cpp/models/heston.{hpp,cpp}) as pure
 broadcasting JAX:
@@ -9,7 +9,7 @@ broadcasting JAX:
   reference quadrature grid (1024 points, du=0.01, alpha=0.75;
   heston.cpp:94-151).  Where the C++ evaluates the integrand in a scalar loop
   per option (OpenMP over options, heston.cpp:236-244), here the full
-  (options x quadrature) tensor is evaluated as one fused VPU computation,
+  (options x quadrature) tensor is evaluated as one fused vector computation,
   which also batches over calibration populations via ``vmap``.
 * :func:`price_fft` — the true FFT formulation of Carr-Madan (1999): one
   ``jnp.fft.fft`` prices an entire log-strike grid per maturity.
@@ -151,7 +151,7 @@ def _cf_reduced(params, u, T, rdt, cdt):
 
     Splitting the phase out and folding it with the strike phase into a
     single small forward-moneyness phase (see _carr_madan_integrand) is what
-    makes the float32/complex64 TPU path accurate: the two individually
+    makes the float32/complex64 device path accurate: the two individually
     large, cancelling phases iu*ln(S0) and -iv*ln(K) never materialize.
     """
     kappa = jnp.asarray(params.kappa, dtype=rdt)
@@ -736,7 +736,7 @@ def price_options(params, strikes, maturities, spot, rate=0.0, dividend=0.0, is_
 
     The reference parallelizes this loop with OpenMP (heston.cpp:236-244);
     here the batch axis is a tensor axis, so one jitted call prices the whole
-    chain on the VPU and shards across devices over the quote axis.
+    chain as one vector op and shards across devices over the quote axis.
     """
     return price_carr_madan(params, strikes, maturities, spot, rate, dividend, is_call)
 

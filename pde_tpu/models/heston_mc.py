@@ -11,9 +11,9 @@ framework to path-dependent payoffs those engines cannot price — discretely
 monitored barriers, arithmetic Asians, lookbacks — while cross-validating the
 quadrature and PDE prices on Europeans.
 
-TPU-native design: the path axis is the vector axis (a ``(n_paths,)`` state
+Device-native design: the path axis is the vector axis (a ``(n_paths,)`` state
 carried through one ``lax.scan`` over time steps), so every step is a fused
-elementwise VPU op across all paths at once; path-dependent statistics
+elementwise vector op across all paths at once; path-dependent statistics
 (running average / max / min) are O(1)-memory scan accumulators, never
 ``(n_paths, n_steps)`` materializations.  Antithetic variates come free as a
 ``concatenate([z, -z])`` on the vector axis; the martingale control variate

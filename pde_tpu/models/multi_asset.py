@@ -4,13 +4,13 @@ Coverage extension beyond the reference (dharvpat/PDE is single-asset
 throughout — its pricing stack tops out at the 2D Heston PDE of
 src/cpp/solvers/heston_pde.hpp and the single-underlying MC/CF pricers).
 A desk migrating from it still needs correlation products, so this module
-adds the standard multi-asset toolkit, designed TPU-first:
+adds the standard multi-asset toolkit, designed for the accelerator:
 
-* **Correlated terminal sampling on the MXU.**  European multi-asset
+* **Correlated terminal sampling as a matrix product.**  European multi-asset
   payoffs under GBM need no time stepping — ``S_T = S_0 exp((r-q-sigma^2/2)T
   + sqrt(T) L z)`` with ``L`` the correlation Cholesky factor, so the entire
   simulation is ONE ``(n_paths, n_assets) @ (n_assets, n_assets)`` matmul
-  feeding elementwise exp: MXU + VPU, zero HBM round trips per step.
+  feeding elementwise exp: one matmul + vector ops, zero HBM round trips per step.
 * **Closed forms as control variates.**  The geometric basket is exactly
   lognormal, so arithmetic-basket MC runs with the geometric twin as a
   control variate (same z draws, exact expectation) — measured 20-60x
@@ -322,7 +322,7 @@ def sample_terminal_gbm(
 
     Returns ``(s_t, z)`` with ``s_t`` of shape (n_paths, n_assets).  The
     correlation is applied as ``z @ L.T`` — a (paths, n) x (n, n) matmul
-    the MXU eats whole — and the same ``z`` is returned so control-variate
+    one matmul eats whole — and the same ``z`` is returned so control-variate
     payoffs reuse identical draws.  With ``antithetic`` the second half of
     the paths is the negation of the first.
     """

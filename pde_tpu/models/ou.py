@@ -1,6 +1,6 @@
 """Ornstein-Uhlenbeck process: exact MLE, simulation, boundaries, signals.
 
-TPU-native redesign of the reference C++ engine
+JAX redesign of the reference C++ engine
 (src/cpp/models/ou_process.{hpp,cpp}) and the Python wrapper walk
 (src/python/quant_trading/models/ou_process.py:375-425):
 
@@ -206,7 +206,7 @@ def simulate_parallel(params: OUParams, x0, T, n_steps: int, key) -> jnp.ndarray
     whole path is one ``jax.lax.associative_scan`` — ~2 log2(n) vector
     passes instead of n sequential steps.  The reference's serial loop
     (ou_process.cpp:230-256) and :func:`simulate`'s ``lax.scan`` are
-    latency-bound at ~n dependent steps; this variant is bound by VPU
+    latency-bound at ~n dependent steps; this variant is bound by vector
     throughput instead, which is the winning trade for LONG paths (one
     path, millions of steps) where the batch axis can't fill the lanes.
     For wide Monte-Carlo fans of short paths keep ``vmap(simulate)`` — the

@@ -1,4 +1,4 @@
-"""Interest-rate models, TPU-native: discount curves, Vasicek/CIR affine
+"""Interest-rate models: discount curves, Vasicek/CIR affine
 bonds, and the Hull-White (extended-Vasicek) short-rate model with
 closed-form bond options, caps/floors, and Jamshidian swaptions.
 
@@ -8,14 +8,14 @@ here is the same mathematical object as the reference's mean-reversion
 engine (src/cpp/models/ou_process.cpp:230-256 exact discretization), lifted
 to the risk-neutral short-rate setting.
 
-Design (TPU-first):
+Design (device-first):
 
 * A :class:`DiscountCurve` is a pair of arrays ``(times, dfs)`` with
   log-linear interpolation (piecewise-constant instantaneous forwards) —
   pure ``jnp.interp`` on log-discounts, so every curve read is vectorized
   and jit/vmap/grad-safe.  No Python objects, no callables: curves are
   pytrees and shard like any other batch axis.
-* All pricers are closed-form affine expressions (MXU-irrelevant, VPU
+* All pricers are closed-form affine expressions (matmul-free, vector
   elementwise) built to broadcast: maturities, strikes, and tenors may all
   be arrays.
 * The Jamshidian swaption decomposition solves for the critical short rate

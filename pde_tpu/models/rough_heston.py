@@ -31,7 +31,7 @@ same O(dt^{1+alpha}) history accuracy.  The convolutional weight structure
 makes each time step a dense dot of the F-history with a weight row —
 expressed as a ``lax.scan`` whose body is one (N,) x (N, n_u) contraction,
 so the whole O(N^2 n_u) solve is a handful of fused matvecs per step on
-the VPU/MXU, batched over ALL quadrature nodes u at once (a scalar loop
+the device, batched over ALL quadrature nodes u at once (a scalar loop
 would pay the O(N^2) per node).  Weights depend on traced alpha and are
 built in-graph; N is static.
 

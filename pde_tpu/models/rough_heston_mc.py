@@ -17,7 +17,7 @@ geometric node grid.  Each exponential factor is then an OU-type state
     dF_t = lam (theta - V_t) dt + nu sqrt(V_t^+) dW_t,
 
 i.e. an (n_paths, n_factors) Markovian system — one fused elementwise
-update per time step inside ``lax.scan``, the same TPU shape as the
+update per time step inside ``lax.scan``, the same device shape as the
 classic QE engine (models/heston_mc.py).  The factor recursion uses the
 exact exponential decay e^{-x_j dt} with the integrated-kernel average
 gamma_j = (1 - e^{-x_j dt})/(x_j dt) on the shared increment, so stiff

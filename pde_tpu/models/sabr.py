@@ -1,10 +1,10 @@
-"""SABR model: Hagan et al. (2002) asymptotic implied volatility, TPU-native.
+"""SABR model: Hagan et al. (2002) asymptotic implied volatility.
 
 Redesign of the reference C++ implementation (src/cpp/models/sabr.{hpp,cpp})
 as a single branch-free broadcasting jnp expression: every conditional in the
 scalar C++ (small-z Taylor of chi, ATM detection, zero-maturity shortcut,
 rho -> 1 limit) becomes a ``jnp.where`` with NaN-safe guarded operands, so one
-call evaluates an entire (strikes x maturities) surface on the VPU and the
+call evaluates an entire (strikes x maturities) surface as one vector op and the
 formula is differentiable — parameter sensitivities come from ``jax.grad``
 instead of the reference's finite differences (sabr.cpp:250-280).
 """

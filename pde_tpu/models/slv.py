@@ -12,7 +12,7 @@ local-vol surface.  Gyongy's theorem gives the calibration condition
 
 which the **particle method** (Guyon & Henry-Labordere 2012) solves in one
 forward sweep: march a particle cloud, estimate E[v | S] at each step by
-binning (a `segment_sum` — fixed bin count, static shapes, TPU-friendly),
+binning (a `segment_sum` — fixed bin count, static shapes, accelerator-friendly),
 set L from the target surface, step with it, repeat.  The whole calibration
 is one `lax.scan`.
 

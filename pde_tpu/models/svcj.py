@@ -1,5 +1,5 @@
 """SVCJ — stochastic volatility with correlated jumps in price AND variance
-(Duffie-Pan-Singleton 2000), TPU-native.
+(Duffie-Pan-Singleton 2000).
 
 Bates adds jumps to the price only; SVCJ jumps both state variables at the
 same Poisson arrivals:

@@ -8,7 +8,7 @@ from maturity, the ``D`` exponent at the start of interval ``j`` becomes the
 terminal condition of interval ``j-1``, for which the constant-parameter
 Riccati still has a closed form.
 
-TPU-first integration: :class:`TermHestonParams` is a pytree whose
+Device-first integration: :class:`TermHestonParams` is a pytree whose
 ``cf_reduced_extra`` hook (models/heston.py:_cf_reduced) *divides out* the
 base constant-parameter exponents and multiplies the glued ones in — so the
 whole existing pricing stack (Carr-Madan quadrature, corrected-GL rules,

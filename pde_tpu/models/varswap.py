@@ -23,7 +23,7 @@ The log-contract strip is *biased* under jumps by a known closed form
 :func:`strip_jump_bias` and regression-tested.
 
 All functions are jittable, vmap over maturities/params, and run float32 on
-TPU (the Laplace quadrature is a smooth bounded integrand — no parity-grade
+the device (the Laplace quadrature is a smooth bounded integrand — no parity-grade
 precision needed for swap strikes quoted in vol points).
 """
 
@@ -165,7 +165,7 @@ def fair_volatility_strike(params, maturity, *, n_nodes: int = 128):
     T = jnp.asarray(maturity, dt)
     log_lap = integrated_variance_log_laplace(params, s / T, maturity)
     # 1 - L via -expm1(log L): at the dominant s -> 0 end the direct form
-    # 1 - exp(-s E[I]) is pure cancellation in float32 (TPU path)
+    # 1 - exp(-s E[I]) is pure cancellation in float32 (device path)
     integrand = -2.0 * jnp.expm1(log_lap) / (t * t)
     return jnp.sum(w * integrand) / (2.0 * jnp.sqrt(jnp.asarray(np.pi, dt)))
 

@@ -151,7 +151,7 @@ def vix_spot(params, tenor=VIX_TENOR):
 def _terminal_log_laplace(params, maturity, s):
     """log E[exp(-s v_T)] — closed form for the noncentral chi-square law.
     Exposed in log form so ``1 - L`` can be built cancellation-free with
-    ``expm1`` (float32/TPU-safe; see varswap.integrated_variance_log_laplace)."""
+    ``expm1`` (float32-safe; see varswap.integrated_variance_log_laplace)."""
     c, d, lam = cir_terminal_law(params, maturity)
     q = 2.0 * c * s
     return -lam * c * s / (1.0 + q) - 0.5 * d * jnp.log1p(q)

@@ -1,25 +1,33 @@
-"""Fully-fused Douglas ADI march — ONE Pallas kernel for the whole time loop.
+"""Fused Douglas ADI march for an option book — one Pallas (Triton) kernel.
 
-SURVEY.md §7 names "getting VMEM tiling right for the ADI transpose between
-S-sweep and v-sweep" as this framework's core kernel-engineering task; this
-kernel is that task done end-to-end.  The XLA `lax.scan` formulation
-(solvers/heston_adi._solve_core) round-trips V through HBM every time step;
-here the ENTIRE march — mixed-derivative stencil, both implicit Thomas
-sweeps (the v-sweep via an in-VMEM transpose), boundary reimposition and
-the American projection / Ikonen-Toivanen multiplier update — runs inside
-one kernel with V, the multiplier and all scratch VMEM-resident for all
-n_time steps: ~6-8 us/step vs ~36 us/step for the scan path on v5e
-(4-6x), agreeing to f32 accumulation tolerance (~1e-5 relative).
+The XLA formulation (:func:`pde_tpu.solvers.heston_adi.solve_batch`) runs
+the time march as a ``lax.scan`` whose Thomas sweeps are ``lax.scan`` s
+themselves: on a GPU every sweep row is its own small kernel, about
+n_time * 2 * (n_spot + n_vol) dependent launches per book.  This kernel
+runs the whole march of ONE option inside one program (one CTA): the
+mixed-derivative stencil, both implicit sweeps, the Dirichlet boundaries
+and the American projection / Ikonen-Toivanen multiplier update, for all
+n_time steps, with no return to the host between steps.  The grid is one
+program per option, so a 512-option book spreads over every SM.
 
-Mosaic lowering notes (the patterns that do NOT lower, and their
-replacements — kept here so the next kernel doesn't rediscover them):
-  * scatter (`x.at[i].add/set`) -> pad-shift-multiply with band arrays that
-    are zero where the shift runs off the grid, and iota masks for edges;
-  * 2D `jnp.pad` -> composed single-axis shifts + interior mask;
-  * dynamic indexing of VALUES (`rhs[i, :]`) -> stage through a VMEM
-    scratch ref first; refs support dynamic sublane indexing;
-  * dynamic LANE indexing (`c[:, j]`) -> transpose once in VMEM and sweep
-    along sublanes; 1D coefficient vectors read per-step live in SMEM.
+Layout.  Each option owns flat float32 buffers in device memory (hot in
+L1/L2 while its program runs) holding the (nS, nv) grid inside a one-cell
+zero halo: node (i, j) lives at ``(i + 1) * C + (j + 1)`` with
+``C = next_pow2(nv + 2)``.  A grid row is a ``C``-wide contiguous window,
+a grid column an ``NSP = next_pow2(nS)``-long window of stride ``C``, and
+the halo turns every stencil neighbour into a shifted window (Triton
+tensors have power-of-two sizes; masks keep stores inside the real grid).
+Each time step has four phases:
+
+1. rows i = 0..nS-1: explicit operators with the S-direction Thomas
+   elimination fused in (the carry is the previous row);
+2. rows i = nS-1..0: S back substitution, forming the v-sweep right side;
+3. columns j = 0..nv-1: v-direction elimination;
+4. columns j = nv-1..0: v back substitution, boundaries, exercise.
+
+Row and column phases reach the same buffer through different threads, so
+a CTA barrier separates the phases.  The barrier has no interpreter rule;
+``interpret=True`` runs each program serially, where none is needed.
 """
 
 from __future__ import annotations
@@ -29,616 +37,229 @@ import functools
 import jax
 import jax.numpy as jnp
 
-__all__ = ["fused_douglas_march", "fused_douglas_march_batched"]
+__all__ = ["fused_douglas_march_batched", "adi_layout"]
+
+# warps per program: row phases carry C <= 64 lanes, column phases NSP
+# <= 128, so four warps cover a column with one element per thread
+_NUM_WARPS = 4
 
 
-@functools.partial(
-    jax.jit, static_argnames=("n_spot", "n_vol", "n_time", "interpret")
-)
-def fused_douglas_march(
-    payoff,        # (nS, nv) terminal condition
-    a1_bands,      # (a1L, a1D, a1U): row-aligned (nS, nv) explicit S-operator
-    i1_bands,      # (i1L, i1D, i1U): row-aligned (nS, nv) implicit S-system
-    a2_bands,      # (a2L, a2D, a2U): (nv,) explicit v-operator bands
-    i2_bands,      # (i2L, i2D, i2U): (nv,) implicit v-system bands
-    mix_coef,      # (nv,) rho*sigma*v_j / (4 dx dv)
-    s_grid,        # (nS,)
-    scalars,       # (7,): dt, r, q, K, is_call(0/1), american(0/1), it_lcp(0/1)
-    n_spot: int,
-    n_vol: int,
-    n_time: int,
-    interpret: bool = False,
-):
-    """Run the whole Douglas march in one Pallas kernel; returns V(t=0).
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, int(n - 1).bit_length())
 
-    Boundary treatment, band conventions and step ordering are identical to
-    solvers/heston_adi._solve_core (In 't Hout–Foulon; reference counterpart
-    heston_pde.hpp:56-150).  American exercise: projection mode, or the
-    Ikonen–Toivanen multiplier splitting when the it_lcp flag is set (the
-    multiplier field lives in VMEM scratch alongside V).
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
 
-    nS, nv, nT = n_spot, n_vol, n_time
-    dtype = jnp.float32
-    a1L, a1D, a1U = (b.astype(dtype) for b in a1_bands)
-    i1L, i1D, i1U = (b.astype(dtype) for b in i1_bands)
-    a2L, a2D, a2U = (b.astype(dtype) for b in a2_bands)
-    i2L, i2D, i2U = (b.astype(dtype) for b in i2_bands)
-
-    def kernel(payoff_ref, a1L_ref, a1D_ref, a1U_ref, i1L_ref, i1D_ref, i1U_ref,
-               a2L_ref, a2D_ref, a2U_ref, i2L_ref, i2D_ref, i2U_ref,
-               mix_ref, sg_ref, par_ref, out_ref,
-               V_scr, c_scr, d_scr, t_scr, c2_scr, d2_scr, t2_scr, lam_scr,
-               inv1_scr, inv2_scr):
-        dt = par_ref[0]
-        r = par_ref[1]
-        q = par_ref[2]
-        K = par_ref[3]
-        is_call = par_ref[4] > 0.5
-        american = par_ref[5] > 0.5
-        it_lcp = par_ref[6] > 0.5
-        th = 0.5  # Douglas parameter
-
-        V_scr[:, :] = payoff_ref[:, :]
-        lam_scr[:, :] = jnp.zeros((nS, nv), dtype)
-
-        def sh_dn0(V):  # V[i-1, j]; zero row 0
-            return jnp.pad(V[:-1, :], ((1, 0), (0, 0)))
-
-        def sh_up0(V):  # V[i+1, j]; zero last row
-            return jnp.pad(V[1:, :], ((0, 1), (0, 0)))
-
-        def sh_dn1(V):  # V[i, j-1]
-            return jnp.pad(V[:, :-1], ((0, 0), (1, 0)))
-
-        def sh_up1(V):  # V[i, j+1]
-            return jnp.pad(V[:, 1:], ((0, 0), (0, 1)))
-
-        def apply_a1(V):
-            # bands are zero where the shift runs off the grid
-            return a1D_ref[:, :]*V + a1L_ref[:, :]*sh_dn0(V) + a1U_ref[:, :]*sh_up0(V)
-
-        def apply_a2(V):
-            return (V*a2D_ref[0, :][None, :]
-                    + sh_dn1(V)*a2L_ref[0, :][None, :]
-                    + sh_up1(V)*a2U_ref[0, :][None, :])
-
-        ii = jax.lax.broadcasted_iota(jnp.int32, (nS, nv), 0)
-        jj = jax.lax.broadcasted_iota(jnp.int32, (nS, nv), 1)
-        interior = (ii > 0) & (ii < nS - 1) & (jj > 0) & (jj < nv - 1)
-
-        def apply_a0(V):
-            Vxv = (sh_up0(sh_up1(V)) - sh_up0(sh_dn1(V))
-                   - sh_dn0(sh_up1(V)) + sh_dn0(sh_dn1(V)))
-            return jnp.where(interior, mix_ref[0, :][None, :]*Vxv, 0.0)
-
-        # both implicit operators are time-independent: Thomas-factorize
-        # ONCE before the march (c and reciprocal pivots), so the per-step
-        # serial chains below are multiply/fma-only
-        c_scr[0, :] = i1U_ref[0, :]/i1D_ref[0, :]
-        inv1_scr[0, :] = 1.0/i1D_ref[0, :]
-
-        def fac1(i, _):
-            li = i1L_ref[i, :]
-            inv = 1.0/(i1D_ref[i, :] - li*c_scr[i - 1, :])
-            c_scr[i, :] = i1U_ref[i, :]*inv
-            inv1_scr[i, :] = inv
-            return 0
-
-        jax.lax.fori_loop(1, nS, fac1, 0, unroll=True)
-
-        c2_scr[0, :] = jnp.full((nS,), i2U_ref[0]/i2D_ref[0])
-        inv2_scr[0, :] = jnp.full((nS,), 1.0/i2D_ref[0])
-
-        def fac2(j, _):
-            lj = i2L_ref[j]
-            inv = 1.0/(i2D_ref[j] - lj*c2_scr[j - 1, :])
-            c2_scr[j, :] = i2U_ref[j]*inv
-            inv2_scr[j, :] = inv
-            return 0
-
-        jax.lax.fori_loop(1, nv, fac2, 0, unroll=True)
-
-        def body(step, _):
-            V = V_scr[:, :]
-            lam = lam_scr[:, :]
-            Y0 = V + dt*(apply_a0(V) + apply_a1(V) + apply_a2(V)
-                         + jnp.where(it_lcp, lam, 0.0))
-
-            # implicit S sweep: stage rhs in scratch (refs allow dynamic
-            # sublane indexing; register values do not)
-            t_scr[:, :] = Y0 - th*dt*apply_a1(V)
-            d_scr[0, :] = t_scr[0, :]*inv1_scr[0, :]
-
-            def fwd1(i, _):
-                li = i1L_ref[i, :]
-                d_scr[i, :] = (t_scr[i, :] - li*d_scr[i - 1, :])*inv1_scr[i, :]
-                return 0
-
-            jax.lax.fori_loop(1, nS, fwd1, 0, unroll=True)
-            t_scr[nS - 1, :] = d_scr[nS - 1, :]
-
-            def bwd1(k, _):
-                i = nS - 2 - k
-                t_scr[i, :] = d_scr[i, :] - c_scr[i, :]*t_scr[i + 1, :]
-                return 0
-
-            jax.lax.fori_loop(0, nS - 1, bwd1, 0, unroll=True)
-            Y1 = t_scr[:, :]
-
-            # implicit v sweep: transpose once in VMEM, sweep along sublanes
-            t2_scr[:, :] = (Y1 - th*dt*apply_a2(V)).T
-            d2_scr[0, :] = t2_scr[0, :]*inv2_scr[0, :]
-
-            def fwd2(j, _):
-                lj = i2L_ref[j]
-                d2_scr[j, :] = (t2_scr[j, :] - lj*d2_scr[j - 1, :])*inv2_scr[j, :]
-                return 0
-
-            jax.lax.fori_loop(1, nv, fwd2, 0, unroll=True)
-            t2_scr[nv - 1, :] = d2_scr[nv - 1, :]
-
-            def bwd2(k, _):
-                j = nv - 2 - k
-                t2_scr[j, :] = d2_scr[j, :] - c2_scr[j, :]*t2_scr[j + 1, :]
-                return 0
-
-            jax.lax.fori_loop(0, nv - 1, bwd2, 0, unroll=True)
-            Vn = t2_scr[:, :].T
-
-            # Ikonen–Toivanen multiplier update: V_new - dt lam_new =
-            # Vn - dt lam, V_new >= g, lam_new >= 0, lam_new (V_new - g) = 0
-            g = payoff_ref[:, :]
-            W = Vn - dt*lam
-            V_it = jnp.maximum(g, W)
-            lam_scr[:, :] = jnp.where(it_lcp, (V_it - W)/dt, lam)
-            Vn = jnp.where(it_lcp, V_it, Vn)
-
-            # In 't Hout–Foulon Dirichlet boundaries at tau (iota masks —
-            # scatter writes don't lower)
-            tau = dt*(step + 1).astype(dtype)
-            dfr = jnp.exp(-r*tau)
-            dfq = jnp.exp(-q*tau)
-            sg2d = sg_ref[:, :]  # (nS, 1), broadcasts over columns
-            Vn = jnp.where(ii == 0,
-                           jnp.where(is_call, 0.0, K*dfr - sg_ref[0, 0]*dfq), Vn)
-            Vn = jnp.where(ii == nS - 1,
-                           jnp.where(is_call, sg_ref[nS - 1, 0]*dfq - K*dfr, 0.0), Vn)
-            Vn = jnp.where(jj == nv - 1,
-                           jnp.where(is_call, sg2d*dfq, K*dfr), Vn)
-            # projection-mode American: clamp everywhere; it_lcp: the
-            # Dirichlet rows are European — floor them at intrinsic
-            edge = (ii == 0) | (ii == nS - 1) | (jj == 0) | (jj == nv - 1)
-            Vn = jnp.where(american & ~it_lcp, jnp.maximum(Vn, g), Vn)
-            Vn = jnp.where(it_lcp & edge, jnp.maximum(Vn, g), Vn)
-            V_scr[:, :] = Vn
-            return 0
-
-        jax.lax.fori_loop(0, nT, body, 0, unroll=False)
-        out_ref[:, :] = V_scr[:, :]
-
-    vspec = lambda shape: pl.BlockSpec(shape, lambda: (0, 0), memory_space=pltpu.VMEM)
-    sspec = pl.BlockSpec(memory_space=pltpu.SMEM)
-    call = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((nS, nv), dtype),
-        in_specs=[vspec((nS, nv))]*7 + [vspec((1, nv))]*3 + [sspec]*3
-                 + [vspec((1, nv)), vspec((nS, 1)), sspec],
-        out_specs=vspec((nS, nv)),
-        scratch_shapes=[pltpu.VMEM((nS, nv), dtype)]*4
-                       + [pltpu.VMEM((nv, nS), dtype)]*3
-                       + [pltpu.VMEM((nS, nv), dtype)]
-                       + [pltpu.VMEM((nS, nv), dtype),
-                          pltpu.VMEM((nv, nS), dtype)],
-        interpret=interpret,
-    )
-    return call(
-        payoff.astype(dtype), a1L, a1D, a1U, i1L, i1D, i1U,
-        a2L[None, :], a2D[None, :], a2U[None, :], i2L, i2D, i2U,
-        mix_coef.astype(dtype)[None, :], s_grid.astype(dtype)[:, None],
-        scalars.astype(dtype),
-    )
+def adi_layout(n_spot: int, n_vol: int):
+    """``(NSP, C, F)``: padded row count, row stride, flat buffer length."""
+    nsp = _next_pow2(n_spot)
+    c = _next_pow2(n_vol + 2)
+    return nsp, c, (nsp + 3) * c
 
 
 @functools.partial(
     jax.jit,
-    static_argnames=("n_spot", "n_vol", "n_time", "use_it", "interpret",
-                     "unroll", "pcr_v", "pcr_s"),
+    static_argnames=("n_spot", "n_vol", "n_time", "use_it", "interpret"),
 )
 def fused_douglas_march_batched(
-    pay,           # (nS, 1, B) per-option payoff profile on its own K-scaled grid
-    sg,            # (nS, 1, B) per-option spot grid K_b * exp(x_i)
-    a1b,           # (3, nv, B) explicit S-operator interior rows [lo, di, up]
-    i1b,           # (3, nv, B) implicit S-system interior rows [lo, di, up]
-    a2b,           # (3, nv, B) explicit v-operator bands, row-aligned, edges baked
-    i2b,           # (3, nv, B) implicit v-system bands, row-aligned (identity at j=nv-1)
-    mixb,          # (1, nv, B) mixed-derivative coefficient, zero at both j edges
-    sc,            # (8, 1, B): dt, r, q, K, is_call(0/1), american(0/1), 0, 0
+    pay,    # (B, NSP) payoff of row i on the option's own K-scaled grid
+    sg,     # (B, NSP) spot level of row i
+    a1b,    # (B, 4, C) explicit S-operator interior rows [lo, di, up, 0] by j
+    i1b,    # (B, 4, C) implicit S-system interior rows [lo, di, up, 0] by j
+    a2b,    # (B, 4, C) explicit v-operator bands, row-aligned, edges baked in
+    i2b,    # (B, 4, C) implicit v-system bands (identity row at j = nv-1)
+    mixb,   # (B, C) mixed-derivative coefficient, zero at both j edges
+    sc,     # (B, 8): dt, r, q, K, is_call(0/1), american(0/1), 0, 0
+    *,
     n_spot: int,
     n_vol: int,
     n_time: int,
     use_it: bool = False,
     interpret: bool = False,
-    unroll=True,
-    pcr_v: bool = False,
-    pcr_s: bool = False,
 ):
-    """Douglas ADI march for a whole option BATCH inside one Pallas kernel,
-    the batch riding the 128 VPU lanes.
+    """March a whole book; returns the t=0 grids as ``(B, nS, nv)``.
 
-    Layout is ``(nS outer, nv sublane, B lane)`` throughout: the S-sweep's
-    Thomas recurrence walks the *outer* dim (cheap ``(1, nv, B)`` slices),
-    the v-sweep walks the sublane dim, and every vector op carries all B
-    options at once — so, unlike :func:`fused_douglas_march`, no lanes idle
-    (a single 100x50 grid uses 50 of 128 lanes) and the v-sweep needs no
-    transpose.  In log-spot coordinates with K-scaled grids, dx is the SAME
-    for every option, so the S-operator coefficients depend only on (v_j,
-    option) — the bands enter as ``(nv, B)`` lane-stacks, not full grids.
-    Per-option contract scalars (dt, r, q, K, call/put, American flag) ride
-    ``(1, 1, B)`` lane vectors: a batch may mix strikes, maturities, rates,
-    Heston parameters, calls with puts, AND European with American
-    (projection).  The Ikonen-Toivanen LCP variant (``use_it=True``, static
-    because it allocates the multiplier buffer) treats flagged lanes with
-    the multiplier splitting.
-
-    Batches larger than 128 run as a Mosaic grid over 128-lane blocks
-    (caller pads).  VMEM: 4 grid-size buffers (5 with ``use_it``) of
-    ~2.9 MB at the default 100x50 grid — the raised ``vmem_limit_bytes``
-    covers it (the default 16 MB Mosaic cap was the old blocker; the chip
-    has far more).
-
-    Reference counterpart: the per-option C++ solver loop around
-    heston_pde.hpp:116-170; here the whole desk marches per kernel call.
+    Per-option inputs enter zero-padded to the widths of
+    :func:`adi_layout` (beyond ``n_spot`` rows and ``n_vol`` columns).
+    ``use_it`` selects the Ikonen-Toivanen multiplier treatment for the
+    options flagged American (static: it adds the multiplier buffer);
+    otherwise flagged options are projected on the payoff every step.
     """
-    import math
-
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as plgpu
 
     nS, nv, nT = n_spot, n_vol, n_time
-    B = pay.shape[-1]
-    BLK = 128 if B % 128 == 0 else B  # full-lane blocks; tiny batches in one
-    nb = B // BLK
-    dtype = jnp.float32
+    NSP, C, F = adi_layout(nS, nv)
+    B = pay.shape[0]
+    f32 = jnp.float32
     th = 0.5  # Douglas parameter
-    # PCR levels (strides 1, 2, 4, ... until >= the sweep length);
-    # Mosaic fori_loop supports only unroll=1 or FULL unroll (True)
-    n_lev = max(1, math.ceil(math.log2(nv)))
-    n_lev_s = max(1, math.ceil(math.log2(nS)))
 
-    # i-axis masks as tiny inputs ((nS, 1, 1) f32) — avoids 3D iota in-kernel
-    ar = jnp.arange(nS, dtype=dtype)[:, None, None]
-    m0 = (ar == 0).astype(dtype)
-    mN = (ar == nS - 1).astype(dtype)
-    mi = ((ar > 0) & (ar < nS - 1)).astype(dtype)
-    aj = jnp.arange(nv, dtype=dtype)[None, :, None]
-    mj0 = (aj == 0).astype(dtype)
-    mjN = (aj == nv - 1).astype(dtype)
-    jidx = aj  # (1, nv, 1) j indices: builds PCR pad-region masks in-kernel
+    def barrier():
+        if not interpret:
+            plgpu.debug_barrier()
 
     def kernel(pay_ref, sg_ref, a1_ref, i1_ref, a2_ref, i2_ref, mix_ref,
-               sc_ref, m0_ref, mN_ref, mi_ref, mj0_ref, mjN_ref, jidx_ref,
-               iidx_ref, out_ref, *scratch):
-        if use_it:
-            *rest, lam_scr = scratch
-        else:
-            rest = scratch
-        if pcr_s:
-            *rest, sab_scr, sinvd_scr = rest
-        # slot 5/6: (c2, inv2) Thomas factors, or (alpha/beta stack, 1/d)
-        # PCR level coefficients — same positions, mode-dependent meaning
-        V_scr, d_scr, c1_scr, inv1_scr, s2a_scr, s2b_scr = rest
-        dt = sc_ref[0:1, :, :]      # (1, 1, B)
-        r = sc_ref[1:2, :, :]
-        q = sc_ref[2:3, :, :]
-        K = sc_ref[3:4, :, :]
-        call_f = sc_ref[4:5, :, :]
-        amer_f = sc_ref[5:6, :, :]
+               sc_ref, V, D, R, C1, C2, *lam):
+        LAM = lam[0] if use_it else None
+        dt = sc_ref[0]
+        r = sc_ref[1]
+        q = sc_ref[2]
+        K = sc_ref[3]
+        call_f = sc_ref[4]
+        amer_f = sc_ref[5]
 
-        m0_ = m0_ref[:, :, :]
-        mN_ = mN_ref[:, :, :]
-        mi_ = mi_ref[:, :, :]
-        mj0_ = mj0_ref[:, :, :]
-        mjN_ = mjN_ref[:, :, :]
+        jmask = jnp.arange(C) < nv              # real nodes of a row window
+        irow = jnp.arange(NSP)
+        imask = irow < nS                       # real nodes of a column
+        col_off = C + 1 + irow * C              # column-window offsets, j = 0
+        g_col = pay_ref[...]                    # (NSP,) payoff by row
+        sg_col = sg_ref[...]
+        a1L, a1D, a1U = a1_ref[0, :], a1_ref[1, :], a1_ref[2, :]
+        i1L, i1D, i1U = i1_ref[0, :], i1_ref[1, :], i1_ref[2, :]
+        a2L, a2D, a2U = a2_ref[0, :], a2_ref[1, :], a2_ref[2, :]
+        mix = mix_ref[...]
 
-        g = pay_ref[:, :, :]        # (nS, 1, B), broadcasts over sublanes
+        def row(buf, i, dj=0, di=0):            # nodes (i + di, j + dj)
+            return buf.at[pl.ds((i + 1 + di) * C + 1 + dj, C)]
 
-        V_scr[:, :, :] = jnp.broadcast_to(g, (nS, nv, BLK))
-        if use_it:
-            lam_scr[:, :, :] = jnp.zeros((nS, nv, BLK), dtype)
+        def col(buf, j):                        # nodes (i, j), i < NSP
+            return buf.at[col_off + j]
 
-        def sh_dn0(V):  # V[i-1, j]; zero row 0
-            return jnp.pad(V[:-1], ((1, 0), (0, 0), (0, 0)))
+        zeros_c = jnp.zeros((C,), f32)
+        bufs = (V, D, R, C1) + ((LAM,) if use_it else ())
 
-        def sh_up0(V):  # V[i+1, j]; zero last row
-            return jnp.pad(V[1:], ((0, 1), (0, 0), (0, 0)))
+        def clear(k, _):
+            for b in bufs:
+                b[pl.ds(k * C, C)] = zeros_c
+            return None
 
-        def sh_dn1(V):  # V[i, j-1]
-            return jnp.pad(V[:, :-1], ((0, 0), (1, 0), (0, 0)))
+        jax.lax.fori_loop(0, F // C, clear, None)
+        C2[...] = zeros_c
+        barrier()
 
-        def sh_up1(V):  # V[i, j+1]
-            return jnp.pad(V[:, 1:], ((0, 0), (0, 1), (0, 0)))
+        def init_row(i, _):
+            plgpu.store(row(V, i), jnp.full((C,), pay_ref[i], f32),
+                        mask=jmask)
+            return None
 
-        a1L, a1D, a1U = a1_ref[0:1, :, :], a1_ref[1:2, :, :], a1_ref[2:3, :, :]
-        i1L, i1D, i1U = i1_ref[0:1, :, :], i1_ref[1:2, :, :], i1_ref[2:3, :, :]
-        a2L, a2D, a2U = a2_ref[0:1, :, :], a2_ref[1:2, :, :], a2_ref[2:3, :, :]
-        mix = mix_ref[:, :, :]
+        jax.lax.fori_loop(0, nS, init_row, None)
+        barrier()
 
-        def apply_a1(V):
-            return mi_ * (a1D * V + a1L * sh_dn0(V) + a1U * sh_up0(V))
+        def step(t, _):
+            # phase 1: explicit operators + S elimination, rows ascending
+            def fwd_s(i, carry):
+                c_prev, d_prev = carry
+                Vc = row(V, i)[...]
+                Vl = row(V, i, dj=-1)[...]
+                Vr = row(V, i, dj=1)[...]
+                Vd = row(V, i, di=-1)[...]
+                Vu = row(V, i, di=1)[...]
+                Vxv = (row(V, i, 1, 1)[...] - row(V, i, -1, 1)[...]
+                       - row(V, i, 1, -1)[...] + row(V, i, -1, -1)[...])
+                inner = ((i > 0) & (i < nS - 1)).astype(f32)
+                a1V = inner * (a1D * Vc + a1L * Vd + a1U * Vu)
+                a2V = a2D * Vc + a2L * Vl + a2U * Vr
+                rhs = (Vc + dt * (inner * mix * Vxv)
+                       + ((1.0 - th) * dt) * a1V + dt * a2V)
+                if use_it:
+                    rhs = rhs + dt * row(LAM, i)[...]
+                # rows 0 and nS-1 are identity rows of the S system
+                li = i1L * inner
+                dg = i1D * inner + (1.0 - inner)
+                ui = i1U * inner
+                inv = 1.0 / (dg - li * c_prev)
+                c = ui * inv
+                d = (rhs - li * d_prev) * inv
+                plgpu.store(row(D, i), d, mask=jmask)
+                plgpu.store(row(C1, i), c, mask=jmask)
+                plgpu.store(row(R, i), a2V, mask=jmask)
+                return c, d
 
-        def apply_a2(V):
-            return a2D * V + a2L * sh_dn1(V) + a2U * sh_up1(V)
+            jax.lax.fori_loop(0, nS, fwd_s, (zeros_c, zeros_c))
+            barrier()
 
-        def apply_a0(V):
-            Vxv = (sh_up0(sh_up1(V)) - sh_up0(sh_dn1(V))
-                   - sh_dn0(sh_up1(V)) + sh_dn0(sh_dn1(V)))
-            return mi_ * (mix * Vxv)
+            # phase 2: S back substitution; right side of the v system
+            def bwd_s(k, y_next):
+                i = nS - 1 - k
+                y = row(D, i)[...] - row(C1, i)[...] * y_next
+                plgpu.store(row(R, i), y - (th * dt) * row(R, i)[...],
+                            mask=jmask)
+                return y
 
-        # shifts along the sublane (j) / outer (i) axes with a static
-        # stride, for PCR
-        def sh_dn1s(x, s):  # x[:, j-s, :]; zero where j < s
-            return jnp.pad(x[:, :-s, :], ((0, 0), (s, 0), (0, 0)))
+            jax.lax.fori_loop(0, nS, bwd_s, zeros_c)
+            barrier()
 
-        def sh_up1s(x, s):  # x[:, j+s, :]; zero where j >= nv-s
-            return jnp.pad(x[:, s:, :], ((0, 0), (0, s), (0, 0)))
+            # phase 3: v elimination, columns ascending
+            zeros_r = jnp.zeros((NSP,), f32)
 
-        def sh_dn0s(x, s):  # x[i-s, :, :]; zero where i < s
-            return jnp.pad(x[:-s], ((s, 0), (0, 0), (0, 0)))
+            def fwd_v(j, carry):
+                c_prev, d_prev = carry
+                lj = i2_ref[0, j]
+                inv = 1.0 / (i2_ref[1, j] - lj * c_prev)
+                c = i2_ref[2, j] * inv
+                d = (col(R, j)[...] - lj * d_prev) * inv
+                plgpu.store(col(D, j), d, mask=imask)
+                C2[j] = c
+                return c, d
 
-        def sh_up0s(x, s):  # x[i+s, :, :]; zero where i >= nS-s
-            return jnp.pad(x[s:], ((0, s), (0, 0), (0, 0)))
+            jax.lax.fori_loop(0, nv, fwd_v, (jnp.zeros((), f32), zeros_r))
+            barrier()
 
-        # both implicit operators are time-independent: factorize ONCE
-        # before the march; the per-step chains are then mul/fma-only.
-        if pcr_s:
-            # S system via PCR on the outer axis: full (nS, nv, B) level
-            # coefficients (boundary identity rows couple in, so unlike
-            # the v bands they do not stay i-independent across levels)
-            ii1 = iidx_ref[:, :, :]                      # (nS, 1, 1)
-            ls = i1L * mi_
-            ds = i1D * mi_ + (1.0 - mi_)
-            us = i1U * mi_
-            for lev in range(n_lev_s):
-                s = 1 << lev
-                in_lo = (ii1 >= s).astype(dtype)
-                in_hi = (ii1 < nS - s).astype(dtype)
-                d_dn = sh_dn0s(ds, s) + (1.0 - in_lo)
-                d_up = sh_up0s(ds, s) + (1.0 - in_hi)
-                alpha = -(ls * in_lo) / d_dn
-                beta = -(us * in_hi) / d_up
-                sab_scr[(2 * lev) * nS:(2 * lev + 1) * nS, :, :] = alpha
-                sab_scr[(2 * lev + 1) * nS:(2 * lev + 2) * nS, :, :] = beta
-                ls, us, ds = (
-                    alpha * sh_dn0s(ls, s),
-                    beta * sh_up0s(us, s),
-                    ds + alpha * sh_dn0s(us, s) + beta * sh_up0s(ls, s),
-                )
-            sinvd_scr[:, :, :] = 1.0 / ds
-        else:
-            # S system Thomas factors: row 0 and nS-1 are identity
-            # (c = 0, inv = 1)
-            c1_scr[0:1, :, :] = jnp.zeros((1, nv, BLK), dtype)
-            inv1_scr[0:1, :, :] = jnp.ones((1, nv, BLK), dtype)
-
-            def fac1(i, _):
-                nl = (i < nS - 1).astype(dtype)  # 0 at the last row
-                li = i1L * nl
-                dg = i1D * nl + (1.0 - nl)
-                ui = i1U * nl
-                inv = 1.0 / (dg - li * c1_scr[pl.ds(i - 1, 1), :, :])
-                c1_scr[pl.ds(i, 1), :, :] = ui * inv
-                inv1_scr[pl.ds(i, 1), :, :] = inv
-                return 0
-
-            jax.lax.fori_loop(1, nS, fac1, 0, unroll=unroll)
-
-        if pcr_v:
-            # v system via PARALLEL CYCLIC REDUCTION: the serial-in-j
-            # Thomas sweep walks (nS, 1, B) slices — one sublane of eight
-            # live per vector op — while PCR runs log2(nv) levels of
-            # FULL-ARRAY shifted fmas.  The level coefficients
-            # (alpha, beta) and the final diagonal depend only on the
-            # bands, which are time-independent, so they precompute once
-            # here; each march step then reduces the rhs with 2 fmas per
-            # level and one multiply by 1/d.
-            jj1 = jidx_ref[:, :, :]                      # (1, nv, 1)
-            lv = i2_ref[0:1, :, :]
-            dv = i2_ref[1:2, :, :]
-            uv = i2_ref[2:3, :, :]
-            for lev in range(n_lev):
-                s = 1 << lev
-                in_lo = (jj1 >= s).astype(dtype)         # j-s exists
-                in_hi = (jj1 < nv - s).astype(dtype)     # j+s exists
-                d_dn = sh_dn1s(dv, s) + (1.0 - in_lo)    # pad d with 1
-                d_up = sh_up1s(dv, s) + (1.0 - in_hi)
-                alpha = -(lv * in_lo) / d_dn
-                beta = -(uv * in_hi) / d_up
-                s2a_scr[2 * lev:2 * lev + 1, :, :] = alpha
-                s2a_scr[2 * lev + 1:2 * lev + 2, :, :] = beta
-                lv, uv, dv = (
-                    alpha * sh_dn1s(lv, s),
-                    beta * sh_up1s(uv, s),
-                    dv + alpha * sh_dn1s(uv, s) + beta * sh_up1s(lv, s),
-                )
-            s2b_scr[:, :, :] = 1.0 / dv
-        else:
-            # v system Thomas factors: coefficients depend on (j, option)
-            # only — (1, nv, B)
-            s2a_scr[:, 0:1, :] = i2_ref[2:3, 0:1, :] / i2_ref[1:2, 0:1, :]
-            s2b_scr[:, 0:1, :] = 1.0 / i2_ref[1:2, 0:1, :]
-
-            def fac2(j, _):
-                lj = i2_ref[0:1, pl.ds(j, 1), :]
-                inv = 1.0 / (
-                    i2_ref[1:2, pl.ds(j, 1), :]
-                    - lj * s2a_scr[:, pl.ds(j - 1, 1), :]
-                )
-                s2a_scr[:, pl.ds(j, 1), :] = i2_ref[2:3, pl.ds(j, 1), :] * inv
-                s2b_scr[:, pl.ds(j, 1), :] = inv
-                return 0
-
-            jax.lax.fori_loop(1, nv, fac2, 0, unroll=unroll)
-
-        def body(step, _):
-            V = V_scr[:, :, :]
-            # rhs1 = V + dt A0 V + (1-th) dt A1 V + dt A2 V (+ dt lam)
-            acc = V + dt * apply_a0(V)
-            acc = acc + ((1.0 - th) * dt) * apply_a1(V)
-            acc = acc + dt * apply_a2(V)
-            if use_it:
-                acc = acc + dt * lam_scr[:, :, :]
-            out_ref[:, :, :] = acc
-
-            if pcr_s:
-                # S solve: log2(nS) full-array shifted-fma reductions
-                rr = out_ref[:, :, :]
-                for lev in range(n_lev_s):
-                    s = 1 << lev
-                    alpha = sab_scr[(2 * lev) * nS:(2 * lev + 1) * nS, :, :]
-                    beta = sab_scr[(2 * lev + 1) * nS:(2 * lev + 2) * nS, :, :]
-                    rr = (rr + alpha * sh_dn0s(rr, s)
-                          + beta * sh_up0s(rr, s))
-                out_ref[:, :, :] = rr * sinvd_scr[:, :, :]
-            else:
-                # implicit S sweep (Thomas along the outer dim; row 0
-                # identity: inv = 1, li = 0 make d[0] = rhs[0])
-                d_scr[0:1, :, :] = out_ref[0:1, :, :]
-
-                def fwd1(i, _):
-                    nl = (i < nS - 1).astype(dtype)
-                    li = i1L * nl
-                    d_scr[pl.ds(i, 1), :, :] = (
-                        out_ref[pl.ds(i, 1), :, :]
-                        - li * d_scr[pl.ds(i - 1, 1), :, :]
-                    ) * inv1_scr[pl.ds(i, 1), :, :]
-                    return 0
-
-                jax.lax.fori_loop(1, nS, fwd1, 0, unroll=unroll)
-                out_ref[pl.ds(nS - 1, 1), :, :] = d_scr[pl.ds(nS - 1, 1), :, :]
-
-                def bwd1(k, _):
-                    i = nS - 2 - k
-                    out_ref[pl.ds(i, 1), :, :] = (
-                        d_scr[pl.ds(i, 1), :, :]
-                        - c1_scr[pl.ds(i, 1), :, :]
-                        * out_ref[pl.ds(i + 1, 1), :, :]
-                    )
-                    return 0
-
-                jax.lax.fori_loop(0, nS - 1, bwd1, 0, unroll=unroll)
-
-            # rhs2 = Y1 - th dt A2 V
-            out_ref[:, :, :] = out_ref[:, :, :] - (th * dt) * apply_a2(V)
-
-            if pcr_v:
-                # v solve: log2(nv) full-array shifted-fma reductions with
-                # the precomputed level coefficients, then one multiply
-                rr = out_ref[:, :, :]
-                for lev in range(n_lev):
-                    s = 1 << lev
-                    alpha = s2a_scr[2 * lev:2 * lev + 1, :, :]
-                    beta = s2a_scr[2 * lev + 1:2 * lev + 2, :, :]
-                    rr = (rr + alpha * sh_dn1s(rr, s)
-                          + beta * sh_up1s(rr, s))
-                out_ref[:, :, :] = rr * s2b_scr[:, :, :]
-            else:
-                # implicit v sweep (Thomas along the sublane dim; the
-                # j = nv-1 identity row and the j = 0 one-sided row are
-                # baked into i2)
-                d_scr[:, 0:1, :] = out_ref[:, 0:1, :] * s2b_scr[:, 0:1, :]
-
-                def fwd2(j, _):
-                    lj = i2_ref[0:1, pl.ds(j, 1), :]      # (1, 1, B)
-                    d_scr[:, pl.ds(j, 1), :] = (
-                        out_ref[:, pl.ds(j, 1), :]
-                        - lj * d_scr[:, pl.ds(j - 1, 1), :]
-                    ) * s2b_scr[:, pl.ds(j, 1), :]
-                    return 0
-
-                jax.lax.fori_loop(1, nv, fwd2, 0, unroll=unroll)
-                out_ref[:, pl.ds(nv - 1, 1), :] = d_scr[:, pl.ds(nv - 1, 1), :]
-
-                def bwd2(k, _):
-                    j = nv - 2 - k
-                    out_ref[:, pl.ds(j, 1), :] = (
-                        d_scr[:, pl.ds(j, 1), :]
-                        - s2a_scr[:, pl.ds(j, 1), :]
-                        * out_ref[:, pl.ds(j + 1, 1), :]
-                    )
-                    return 0
-
-                jax.lax.fori_loop(0, nv - 1, bwd2, 0, unroll=unroll)
-            Vn = out_ref[:, :, :]
-
-            if use_it:
-                # Ikonen-Toivanen multiplier update on flagged lanes:
-                # V_new - dt lam_new = Vn - dt lam, V_new >= g, lam_new >= 0
-                lam = lam_scr[:, :, :]
-                W = Vn - dt * lam
-                V_it = jnp.maximum(g, W)
-                lam_scr[:, :, :] = amer_f * ((V_it - W) / dt) \
-                    + (1.0 - amer_f) * lam
-                Vn = amer_f * V_it + (1.0 - amer_f) * Vn
-
-            # In 't Hout-Foulon Dirichlet boundaries at tau (mask algebra —
-            # neither scatter nor row-predicated writes lower)
-            tau = dt * (step + 1).astype(dtype)
+            # phase 4: v back substitution, exercise, boundaries
+            tau = dt * (t + 1).astype(f32)
             dfr = jnp.exp(-r * tau)
             dfq = jnp.exp(-q * tau)
-            sgv = sg_ref[:, :, :]                       # (nS, 1, B)
-            bc0 = (1.0 - call_f) * (K * dfr - sg_ref[0:1, :, :] * dfq)
-            bcN = call_f * (sg_ref[pl.ds(nS - 1, 1), :, :] * dfq - K * dfr)
-            bcV = call_f * (sgv * dfq) + (1.0 - call_f) * (K * dfr)
-            Vn = Vn * (1.0 - m0_) + bc0 * m0_
-            Vn = Vn * (1.0 - mN_) + bcN * mN_
-            Vn = Vn * (1.0 - mjN_) + bcV * mjN_
+            bc0 = (1.0 - call_f) * (K * dfr - sg_ref[0] * dfq)
+            bcN = call_f * (sg_ref[nS - 1] * dfq - K * dfr)
+            bcV = call_f * (sg_col * dfq) + (1.0 - call_f) * (K * dfr)
+            i_edge = (irow == 0) | (irow == nS - 1)
 
-            if use_it:
-                # Dirichlet edges are European; floor flagged lanes there
-                me = jnp.minimum(m0_ + mN_ + mj0_ + mjN_, 1.0)
-                w = me * amer_f
-            else:
-                w = amer_f  # projection mode: clamp flagged lanes everywhere
-            Vn = Vn + w * (jnp.maximum(Vn, g) - Vn)
-            V_scr[:, :, :] = Vn
-            return 0
+            def bwd_v(k, x_next):
+                j = nv - 1 - k
+                x = col(D, j)[...] - C2[j] * x_next
+                Vn = x
+                if use_it:
+                    lam_c = col(LAM, j)[...]
+                    W = Vn - dt * lam_c
+                    V_it = jnp.maximum(g_col, W)
+                    plgpu.store(
+                        col(LAM, j),
+                        amer_f * ((V_it - W) / dt) + (1.0 - amer_f) * lam_c,
+                        mask=imask)
+                    Vn = amer_f * V_it + (1.0 - amer_f) * Vn
+                Vn = jnp.where(irow == 0, bc0, Vn)
+                Vn = jnp.where(irow == nS - 1, bcN, Vn)
+                Vn = jnp.where(j == nv - 1, bcV, Vn)
+                if use_it:
+                    edge = i_edge | (j == 0) | (j == nv - 1)
+                    w = jnp.where(edge, amer_f, 0.0)
+                else:
+                    w = amer_f
+                Vn = Vn + w * (jnp.maximum(Vn, g_col) - Vn)
+                plgpu.store(col(V, j), Vn, mask=imask)
+                return x
 
-        jax.lax.fori_loop(0, nT, body, 0, unroll=False)
-        out_ref[:, :, :] = V_scr[:, :, :]
+            jax.lax.fori_loop(0, nv, bwd_v, zeros_r)
+            barrier()
+            return None
 
-    lane = lambda shape: pl.BlockSpec(
-        shape[:-1] + (BLK,), lambda b: (0, 0, b), memory_space=pltpu.VMEM
-    )
-    full = lambda shape: pl.BlockSpec(
-        shape, lambda b: (0, 0, 0), memory_space=pltpu.VMEM
-    )
-    s2a_rows = 2 * n_lev if pcr_v else 1
-    scratch = (
-        [pltpu.VMEM((nS, nv, BLK), dtype)] * 4          # V, d, c1, inv1
-        + [pltpu.VMEM((s2a_rows, nv, BLK), dtype),      # c2 | PCR alpha/beta
-           pltpu.VMEM((1, nv, BLK), dtype)]             # inv2 | PCR 1/d
-        + ([pltpu.VMEM((2 * n_lev_s * nS, nv, BLK), dtype),  # S-PCR a/b
-            pltpu.VMEM((nS, nv, BLK), dtype)]                # S-PCR 1/d
-           if pcr_s else [])
-        + ([pltpu.VMEM((nS, nv, BLK), dtype)] if use_it else [])  # lam
-    )
-    call = pl.pallas_call(
+        jax.lax.fori_loop(0, nT, step, None)
+
+    per_opt = lambda *shape: pl.BlockSpec(
+        (None,) + shape, lambda b: (b,) + (0,) * len(shape))
+    n_buf = 5 if use_it else 4
+    outs = pl.pallas_call(
         kernel,
-        grid=(nb,),
-        out_shape=jax.ShapeDtypeStruct((nS, nv, B), dtype),
-        in_specs=[lane((nS, 1, B))] * 2 + [lane((3, nv, B))] * 4
-                 + [lane((1, nv, B)), lane((8, 1, B))]
-                 + [full((nS, 1, 1))] * 3 + [full((1, nv, 1))] * 3
-                 + [full((nS, 1, 1))],
-        out_specs=lane((nS, nv, B)),
-        scratch_shapes=scratch,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024
-        ),
+        grid=(B,),
+        out_shape=[jax.ShapeDtypeStruct((B, F), f32)] * 4
+                  + [jax.ShapeDtypeStruct((B, C), f32)]
+                  + [jax.ShapeDtypeStruct((B, F), f32)] * (n_buf - 4),
+        in_specs=[per_opt(NSP), per_opt(NSP)] + [per_opt(4, C)] * 4
+                 + [per_opt(C), per_opt(8)],
+        out_specs=[per_opt(F)] * 4 + [per_opt(C)]
+                  + [per_opt(F)] * (n_buf - 4),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS),
         interpret=interpret,
-    )
-    args = [a.astype(dtype) for a in (pay, sg, a1b, i1b, a2b, i2b, mixb, sc)]
-    return call(*args, m0, mN, mi, mj0, mjN, jidx, ar)
+        name="heston_adi_march",
+    )(*(a.astype(f32) for a in (pay, sg, a1b, i1b, a2b, i2b, mixb, sc)))
+    V = outs[0][:, : (NSP + 2) * C].reshape(B, NSP + 2, C)
+    return V[:, 1:nS + 1, 1:nv + 1]

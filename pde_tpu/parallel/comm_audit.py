@@ -1,14 +1,14 @@
 """Communication accounting for the sharded device programs.
 
 Multi-chip scaling on real hardware is set by how many collectives each
-step issues and how many bytes they move over ICI — numbers that are fully
+step issues and how many bytes they move between devices — numbers that are fully
 determined at COMPILE time.  This module extracts them from the optimized
 HLO of the sharded programs, so the scaling story can be stated (and
 regression-tested) without multi-chip hardware: the per-step collective
 count must be INDEPENDENT of the mesh size, and the payload per device must
 SHRINK with it.  (The reference's scaling unit is a K8s service replica
 with REST/DB as the data plane, SURVEY.md §2.3; here the data plane is XLA
-collectives over ICI, and this is its audit.)
+collectives between devices, and this is its audit.)
 
 Measured shape of each program (asserted in tests/test_comm_audit.py):
 

@@ -19,12 +19,12 @@ for ``shard_map``:
    interface unknowns.  One ``all_gather`` of 8 scalars per device per
    system builds the (2P x 2P) reduced system, solved identically on all
    devices with a batched dense solve (P = devices on the axis; 16x16 for
-   a v5e-8 — negligible, O(P^3) only matters beyond ~64-way sharding).
+   8 devices — negligible, O(P^3) only matters beyond ~64-way sharding).
 3. *Back substitution*: pure elementwise, ``xᵢ = (d́ᵢ - ãᵢ x_L - c̃ᵢ x_R)/b́ᵢ``.
 
 Total: ~2x the FLOPs of sequential Thomas plus ONE small collective per
 solve — the textbook redundancy/communication trade of partitioned
-tridiagonal methods, and the only way the recurrence crosses an ICI link
+tridiagonal methods, and the only way the recurrence crosses a device link
 without serializing the mesh.
 
 Numerics: stable for the diagonally-dominant systems the CN/ADI/implicit-
@@ -53,8 +53,7 @@ def _solve_small_nopivot(M, r, n: int):
     elimination WITHOUT pivoting.
 
     Used for the reduced interface system instead of ``jnp.linalg.solve``:
-    TPU's LuDecomposition expander only implements F32/C64 (f64 parity runs
-    would die), LU is overkill for a 2P x 2P system, and no pivoting is safe
+    LU is overkill for a 2P x 2P system, and no pivoting is safe
     here — the reduced system inherits diagonal dominance from the PDE
     operators.  n is static and small (2 x axis size), so the n-step loop
     unrolls into a handful of batched vector ops.

@@ -8,7 +8,7 @@ implements it with ``shard_map`` + ``lax.ppermute``:
 
 * the spatial axis is split across the ``grid`` mesh axis;
 * each explicit stencil step exchanges left/right edge cells with the
-  neighboring devices (two ppermutes riding ICI);
+  neighboring devices (two ppermutes between neighbours);
 * the time march stays a local ``lax.scan`` — communication happens inside
   the compiled program, not per step from the host.
 

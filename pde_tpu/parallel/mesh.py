@@ -1,9 +1,9 @@
 """Device mesh and sharding policies — the distributed-communication layer.
 
 The reference scales out with microservice replicas behind REST +
-TimescaleDB/Redis (SURVEY.md section 2.3); the TPU-native equivalent is a
-single-controller JAX program over a ``jax.sharding.Mesh`` whose collectives
-ride ICI.  Two named axes:
+TimescaleDB/Redis (SURVEY.md section 2.3); the JAX equivalent is a
+single-controller program over a ``jax.sharding.Mesh`` whose collectives
+XLA hands to NCCL.  Two named axes:
 
 * ``dp`` — data parallel over underlyings/surfaces (the reference's
   "replica" axis: each calibration is independent);
@@ -42,20 +42,17 @@ def initialize_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> int:
-    """Multi-host entry point: join this process to a multi-host TPU pod.
+    """Multi-host entry point: join this process to a multi-host cluster.
 
     The reference scales across hosts with K8s replicas + a message broker
-    (SURVEY.md §2.3); the TPU-native equivalent is ``jax.distributed`` — one
-    controller process per host, after which ``jax.devices()`` spans the pod
-    and :func:`make_mesh` lays DP over the DCN-connected hosts and the
-    quote axis over each host's ICI-connected chips.
+    (SURVEY.md §2.3); the JAX equivalent is ``jax.distributed`` — one
+    controller process per host, after which ``jax.devices()`` spans every
+    host and :func:`make_mesh` lays its axes over them.
 
     A bare call is a no-op that returns the local device count — explicit
-    arguments opt in to multi-host (``jax.distributed.initialize`` then
-    auto-fills anything left None from the cluster environment).  Env
-    sniffing is deliberately avoided: single-chip TPU runtimes also export
-    pod-style variables (e.g. TPU_WORKER_HOSTNAMES), so presence of those
-    is not evidence of a pod.
+    arguments opt in to multi-host.  Pass ``coordinator_address``
+    (``host:port``), ``num_processes`` and ``process_id``: nothing is
+    sniffed from the environment.
     """
     if not (coordinator_address is None and num_processes is None and process_id is None):
         jax.distributed.initialize(
@@ -103,10 +100,11 @@ def make_mesh(
 ) -> Mesh:
     """Build a 2D mesh over the available devices.
 
-    On real hardware the ICI topology orders ``jax.devices()``; the default
-    factorization puts the larger axis on ``dp`` (independent surfaces, no
-    communication) and the smaller on ``quotes`` (all-reduce traffic stays on
-    the short axis).  Pass ``n_underlyings`` to size dp to the workload
+    The cards of one host are joined all to all by NVLink, so the device
+    order carries no topology and the mesh follows the algorithm alone:
+    the default factorization puts the larger axis on ``dp`` (independent
+    surfaces, no communication) and the smaller on ``quotes`` (all-reduce
+    traffic stays on the short axis).  Pass ``n_underlyings`` to size dp to the workload
     (see :func:`best_factorization`) — with U >= devices this yields a pure
     dp mesh with zero collective traffic.
     """
@@ -170,8 +168,8 @@ def sharded_calibration_step(mesh: Mesh, lower, upper):
         def one_underlying(xi, ki, ti, yi, lam_i):
             res = residuals_one(xi, ki, ti, yi)
             J = jax.jacfwd(residuals_one)(xi, ki, ti, yi)  # (Q, 5)
-            hi = jax.lax.Precision.HIGHEST  # bf16 MXU default is too
-            # coarse for normal equations (see calibrate/lm.py)
+            hi = jax.lax.Precision.HIGHEST  # TF32 is too coarse for
+            # normal equations (see calibrate/lm.py)
             JTJ = jnp.matmul(J.T, J, precision=hi)  # sharded Q -> all-reduce
             JTr = jnp.matmul(J.T, res, precision=hi)
             A = JTJ + lam_i * jnp.diag(jnp.maximum(jnp.diag(JTJ), 1e-12))

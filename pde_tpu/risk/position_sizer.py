@@ -1,4 +1,4 @@
-"""Volatility-managed position sizing (Moreira & Muir 2017), TPU-native.
+"""Volatility-managed position sizing (Moreira & Muir 2017).
 
 Mirrors the reference risk/position_sizer.py: the vol estimators
 (realized / EWMA lambda=0.94 / GARCH(1,1) / hybrid, :51-261), the

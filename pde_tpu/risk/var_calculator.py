@@ -1,4 +1,4 @@
-"""Value-at-Risk / CVaR, stress scenarios and VaR backtesting, TPU-native.
+"""Value-at-Risk / CVaR, stress scenarios and VaR backtesting.
 
 Mirrors the reference risk/var_calculator.py: parametric (delta-normal),
 historical and Monte-Carlo VaR with component VaR (:192-505), the built-in

@@ -158,7 +158,7 @@ def _chain_to_market_options(chain, S0):
 
 
 def calibration_step(provider=None, db=None, symbols=None):
-    """One daily-calibration pass over the universe (the TPU workload)."""
+    """One daily-calibration pass over the universe (the device workload)."""
     from .calibrate.orchestrator import CalibrationOrchestrator
 
     provider = provider or _provider()

@@ -1,4 +1,4 @@
-"""Volatility-surface arbitrage signals, TPU-native.
+"""Volatility-surface arbitrage signals.
 
 Mirrors the reference VolSurfaceArbitrageSignal
 (signals/vol_surface_arbitrage.py): model-vs-market IV comparison with
@@ -12,7 +12,7 @@ maturity/liquidity/volume filters (:317-341), min/max divergence thresholds
   signal objects;
 * the reference's Heston "implied vol" is a crude sqrt((v0+theta)/2) ATM
   approximation (vol_surface_arbitrage.py:444-467, acknowledged in its own
-  comments); on TPU the real thing is cheap, so we price with the calibrated
+  comments); on the device the real thing is cheap, so we price with the calibrated
   Heston parameters and invert Black-Scholes exactly.
 """
 

@@ -1,6 +1,6 @@
 """PDE solvers: Crank-Nicolson 1D (constant + local vol), Douglas ADI 2D
 (In 't Hout-Foulon boundaries), absorbing-boundary barriers, jump-diffusion
-PIDE (Merton/Kou, MXU jump convolution), HJB optimal stopping,
+PIDE (Merton/Kou, matmul jump convolution), HJB optimal stopping,
 Longstaff-Schwartz."""
 
 from . import (  # noqa: F401

@@ -14,7 +14,7 @@ Thomas sweeps, log-spot coordinates) with four changes:
   a uniform [0, v_max] grid at nv = 60 puts only ~3 points below v0 = 0.04 —
   measured 9% price bias on the canonical up-and-out call, vs <1% with the
   same nv stretched.  Non-uniform spacing keeps the v operator tridiagonal,
-  so the batched-Thomas TPU layout is unchanged;
+  so the batched-Thomas layout is unchanged;
 * the far v boundary uses a Neumann copy (``V[:, -1] = V[:, -2]``) instead
   of the vanilla Dirichlet — there is no closed-form value for a live
   barrier contract at v_max (the region is flat there: a knock-out at 100%

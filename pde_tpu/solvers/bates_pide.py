@@ -1,4 +1,4 @@
-"""Bates 2D PIDE solver — Douglas ADI + IMEX-CNAB jump term, TPU-native.
+"""Bates 2D PIDE solver — Douglas ADI + IMEX-CNAB jump term.
 
 American and European options under stochastic volatility WITH jumps: the
 Heston operator of :mod:`pde_tpu.solvers.heston_adi` (same In 't Hout-Foulon
@@ -15,10 +15,10 @@ and therefore no American-under-jumps solver at all — this module is that
 missing rigorous route, and its European limit is cross-validated against
 the CF pricer (models/bates.py) in tests/test_bates_pide.py.
 
-TPU shape of the jump term: the density is v-independent and acts along the
+Device shape of the jump term: the density is v-independent and acts along the
 log-spot axis only, so on the uniform x grid the integral over ALL nv
 variance columns is ONE Toeplitz contraction ``W @ V`` with ``W`` of shape
-``(nS, nS)`` and ``V`` of shape ``(nS, nv)`` — a single MXU matmul per
+``(nS, nS)`` and ``V`` of shape ``(nS, nv)`` — a single matmul per
 explicit pass (a CPU design pays nv independent O(nS^2) loops or FFTs).
 Jump mass beyond the grid edges integrates in closed form against the
 payoff asymptote exactly as in the 1D solver (solvers/pide.py).

@@ -8,7 +8,7 @@ obstacle projection in its equity PDE solvers
 (/root/reference/src/cpp/solvers/black_scholes_pde.hpp:116-124); it has no
 rates models at all.
 
-Two independent routes, both TPU-native:
+Two independent routes, both on device:
 
 * **PDE** (:func:`bermudan_swaption_pde`).  In the decomposition
   ``r(t) = x(t) + alpha(t)`` the factor ``x`` is a plain OU process

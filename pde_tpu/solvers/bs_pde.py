@@ -1,4 +1,4 @@
-"""Black-Scholes 1D PDE solver (log-space Crank-Nicolson), TPU-native.
+"""Black-Scholes 1D PDE solver (log-space Crank-Nicolson).
 
 Redesign of the reference BlackScholesPDESolver
 (src/cpp/solvers/black_scholes_pde.hpp): same discretization — log-space grid
@@ -267,7 +267,7 @@ def solve(params: BSPDEParams, S0) -> BSPDEResult:
     """Solve the BS PDE and return price/Greeks at ``S0``.
 
     jit-compiled with static grid sizes; ``vmap`` over S0/sigma/K to price in
-    batches (the TPU replacement for looping solver objects).
+    batches (the batched replacement for looping solver objects).
     """
     if params.sigma <= 0:
         raise ValueError("sigma must be positive")
@@ -313,21 +313,21 @@ def solve_fused_batch(
     scheme: str = "crank_nicolson",
     interpret: bool = False,
 ) -> BSPDEResult:
-    """Price a whole option BOOK through ONE fused Pallas march.
+    """Price a whole option BOOK through ONE fused march kernel, float32.
 
     Every array argument broadcasts along one leading batch axis;
     ``is_call`` and ``american`` are per-option, so a batch may mix strikes,
     maturities, rates, vols, calls with puts, and European with American
-    (projection mode).  The entire backward march runs inside one Pallas
-    kernel with the batch riding the 128 VPU lanes
-    (ops/cn1d_fused.fused_cn_march_1d) — the 1D analog of
-    heston_adi.solve_fused_batch.  The reference prices such books by
-    looping one C++ solve per option (black_scholes_pde.hpp:97-147).
+    (projection mode).  The constant-coefficient march is the special case
+    of the local-vol kernel
+    (:func:`pde_tpu.ops.cn1d_tv_fused.fused_cn_march_1d_tv`) whose operator
+    rows do not change with the time level.  The reference prices such
+    books by looping one C++ solve per option (black_scholes_pde.hpp:97-147).
 
-    Greeks from the grid + analytic theta, exactly as :func:`solve`; f32
-    (TPU speed path — use :func:`solve` under float64 for parity work).
+    Greeks from the grid + analytic theta, exactly as :func:`solve`.
+    ``interpret=True`` runs the kernel in the Pallas interpreter (CPU tests).
     """
-    from ..ops.cn1d_fused import fused_cn_march_1d
+    from ..ops.cn1d_tv_fused import fused_cn_march_1d_tv
 
     if scheme not in ("crank_nicolson", "implicit"):
         raise ValueError(
@@ -338,51 +338,41 @@ def solve_fused_batch(
     if n_space < 10 or n_time < 10:
         raise ValueError("n_space and n_time must be >= 10")
 
-    sigma, r, q, T, K, is_call, S0, american = map(
-        jnp.atleast_1d, map(jnp.asarray, (sigma, r, q, T, K, is_call, S0, american))
-    )
-    B = max(a.shape[0] for a in (sigma, r, q, T, K, is_call, S0, american))
-    sigma, r, q, T, K, is_call, S0, american = (
-        jnp.broadcast_to(a, (B,)) for a in (sigma, r, q, T, K, is_call, S0, american)
-    )
-    call_f = is_call.astype(jnp.float32)
-    amer_f = american.astype(jnp.float32)
+    f32 = jnp.float32
+    sigma, r, q, T, K, S0 = (jnp.atleast_1d(jnp.asarray(a, f32))
+                             for a in (sigma, r, q, T, K, S0))
+    call_f = jnp.atleast_1d(jnp.asarray(is_call)).astype(f32)
+    amer_f = jnp.atleast_1d(jnp.asarray(american)).astype(f32)
+    B = max(a.shape[0] for a in (sigma, r, q, T, K, S0, call_f, amer_f))
+    sigma, r, q, T, K, S0, call_f, amer_f = (
+        jnp.broadcast_to(a, (B,))
+        for a in (sigma, r, q, T, K, S0, call_f, amer_f))
 
     # K-scaled log grid: s_i = K * g_i with g_i = s_min_mult * e^{i dx};
     # dx is the SAME for every option
     n = n_space
     dx = jnp.log(s_max_mult / s_min_mult) / (n - 1)
-    g_base = s_min_mult * jnp.exp(dx * jnp.arange(n))           # (n,)
-    s_grid = K[None, :] * g_base[:, None]                        # (n, B)
+    g_base = s_min_mult * jnp.exp(dx * jnp.arange(n, dtype=f32))   # (n,)
+    s_grid = K[None, :] * g_base[:, None]                           # (n, B)
     pay = jnp.where(call_f[None, :] > 0.5,
                     jnp.maximum(s_grid - K[None, :], 0.0),
                     jnp.maximum(K[None, :] - s_grid, 0.0))
 
+    # constant operator rows, repeated over the time levels
     sigma2 = sigma * sigma
-    drift = r - q - 0.5 * sigma2
     a = 0.5 * sigma2 / (dx * dx)
-    b = drift / (2.0 * dx)
+    b = (r - q - 0.5 * sigma2) / (2.0 * dx)
+    rows = jnp.concatenate([jnp.broadcast_to(c, (n, B)) for c in
+                            (a - b, -2.0 * a - r, a + b)])          # (3n, B)
+    bands = jnp.broadcast_to(rows, (n_time + 1, 3 * n, B))
+    sc = jnp.stack([T / n_time, r, q, K, call_f, amer_f,
+                    K * s_min_mult, K * s_max_mult])                # (8, B)
     w = {"crank_nicolson": 0.5, "implicit": 1.0}[scheme]
+    with jax.named_scope("bs_fused_march"):
+        V = fused_cn_march_1d_tv(pay, bands, sc, n_space=n, n_time=n_time,
+                                 w=w, interpret=interpret)          # (n, B)
 
-    # pad EVERY batch to full-lane blocks with copies of lane 0: measured
-    # on v5e a sub-128 lane block marches ~25% slower than an aligned
-    # 128-lane block (misaligned lane tiles tax every vector op)
-    Bp = ((B + 127) // 128) * 128
-    pad = Bp - B
-
-    def padded(x):
-        return jnp.concatenate([x, jnp.broadcast_to(x[..., :1], x.shape[:-1] + (pad,))],
-                               axis=-1) if pad else x
-
-    sc = jnp.stack([
-        T / n_time, r, q, K, call_f, amer_f,
-        a - b, -2.0 * a - r, a + b,
-        K * s_min_mult, K * s_max_mult, jnp.zeros_like(K),
-    ])                                                           # (12, B)
-    V = fused_cn_march_1d(padded(pay), padded(sc), n_space=n, n_time=n_time,
-                          w=w, interpret=interpret)[:, :B]       # (n, B)
-
-    # per-lane readout (price + grid Greeks + analytic theta), vectorized
+    # per-option readout (price + grid Greeks + analytic theta), vectorized
     price, delta, gamma, theta, early = jax.vmap(
         lambda Vb, sgb, S0b, Kb, sigb, rb, qb, Tb, callb, amerb:
             _readout_1d(Vb, sgb, S0b, Kb, sigb, rb, qb, Tb,

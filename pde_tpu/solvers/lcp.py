@@ -1,4 +1,4 @@
-"""Linear-complementarity (obstacle) solvers: projected SOR, TPU-native.
+"""Linear-complementarity (obstacle) solvers: projected SOR and Brennan-Schwartz.
 
 BASELINE.json names the free-boundary PSOR formulation (Leung & Li 2015) as a
 benchmark config; the reference itself only ships the simpler
@@ -11,7 +11,7 @@ LCP solve:
 for tridiagonal A, via **red-black projected SOR**: classic PSOR sweeps are
 sequential in i, but for a tridiagonal operator the even rows depend only on
 odd neighbours and vice versa, so each half-sweep is one fully vectorized
-VPU update — the natural TPU formulation.  Fixed iteration counts keep it
+update.  Fixed iteration counts keep it
 jittable; the residual is returned for monitoring.
 """
 
@@ -25,7 +25,7 @@ import jax.numpy as jnp
 
 __all__ = ["brennan_schwartz", "brennan_schwartz_factor",
            "brennan_schwartz_apply", "BrennanSchwartzFactors",
-           "projected_sor", "projected_sor_pallas", "psor_step"]
+           "projected_sor", "psor_step"]
 
 
 def _apply_tridiag(lower, diag, upper, x):
@@ -244,98 +244,4 @@ def brennan_schwartz(lower, diag, upper, b, g, reverse=False):
                        jnp.broadcast_to(upper, batch + (n - 1,)), x) -
         jnp.broadcast_to(b, batch + (n,)),
         x - jnp.broadcast_to(g, batch + (n,)))))
-    return x, resid
-
-
-@partial(jax.jit, static_argnames=("n_iter", "block_b", "interpret"))
-def projected_sor_pallas(
-    lower,
-    diag,
-    upper,
-    b,
-    g,
-    omega: float = 1.5,
-    n_iter: int = 60,
-    block_b: int = 512,
-    interpret: bool = False,
-):
-    """All n_iter red-black PSOR sweeps fused in ONE Pallas TPU kernel.
-
-    Same LCP and semantics as :func:`projected_sor` for a 2D batch
-    (lower/upper (B, n-1), diag/b/g (B, n)); the iterate and all operands
-    stay VMEM-resident across every sweep (batch tiled over a grid in
-    ``block_b``-lane blocks; SURVEY.md §7 kernels item: "PSOR/projected-
-    Jacobi iteration for LCP ... with pure-jnp reference implementations").
-    Layout: systems transposed to (n, B) so each half-sweep is a handful of
-    full-array VPU ops with checkerboard iota masks; float32; results are
-    bit-identical to :func:`projected_sor` in f32.
-
-    Honest note: XLA's own fusion already keeps this working set on-chip,
-    so at PSOR's natural sizes the jnp scan is equally fast — keep it for
-    the general case; this kernel is the building block for composing PSOR
-    into larger fused marches (see ops/adi_fused.py).
-    ``interpret=True`` runs on CPU for testing.
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    dtype = jnp.float32
-    B, n = jnp.asarray(diag).shape
-    Bp = ((B + block_b - 1) // block_b) * block_b
-    pad = Bp - B
-
-    def prep(a, fill):
-        a = jnp.asarray(a, dtype)
-        if pad:
-            a = jnp.pad(a, ((0, pad), (0, 0)), constant_values=fill)
-        return a.T  # (n, Bp)
-
-    # row-aligned (n, B): lo[i] multiplies x[i-1] (lo[0] = 0), up[i]
-    # multiplies x[i+1] (up[n-1] = 0); padded systems use diag 1 so the
-    # sweeps stay finite
-    zcol = jnp.zeros((jnp.asarray(lower).shape[0], 1), dtype)
-    lo_t = prep(jnp.concatenate([zcol, jnp.asarray(lower, dtype)], axis=1), 0.0)
-    up_t = prep(jnp.concatenate([jnp.asarray(upper, dtype), zcol], axis=1), 0.0)
-    d_t = prep(diag, 1.0)
-    b_t = prep(b, 0.0)
-    g_t = prep(g, 0.0)
-    om = jnp.asarray([omega], dtype)
-
-    def kernel(lo_ref, d_ref, up_ref, b_ref, g_ref, om_ref, out_ref, x_scr):
-        w = om_ref[0]
-        x_scr[:, :] = jnp.maximum(b_ref[:, :]/d_ref[:, :], g_ref[:, :])
-        rows = jax.lax.broadcasted_iota(jnp.int32, (n, block_b), 0)
-        red = rows % 2 == 0
-
-        def half(x, mask):
-            nb = (lo_ref[:, :]*jnp.pad(x[:-1, :], ((1, 0), (0, 0)))
-                  + up_ref[:, :]*jnp.pad(x[1:, :], ((0, 1), (0, 0))))
-            gs = (b_ref[:, :] - nb)/d_ref[:, :]
-            xn = jnp.maximum(x + w*(gs - x), g_ref[:, :])
-            return jnp.where(mask, xn, x)
-
-        def sweep(k, _):
-            x = half(x_scr[:, :], red)
-            x_scr[:, :] = half(x, ~red)
-            return 0
-
-        jax.lax.fori_loop(0, n_iter, sweep, 0, unroll=False)
-        out_ref[:, :] = x_scr[:, :]
-
-    vspec = pl.BlockSpec((n, block_b), lambda i: (0, i), memory_space=pltpu.VMEM)
-    x = pl.pallas_call(
-        kernel,
-        out_shape=jax.ShapeDtypeStruct((n, Bp), dtype),
-        grid=(Bp // block_b,),
-        in_specs=[vspec]*5 + [pl.BlockSpec(memory_space=pltpu.SMEM)],
-        out_specs=vspec,
-        scratch_shapes=[pltpu.VMEM((n, block_b), dtype)],
-        interpret=interpret,
-    )(lo_t, d_t, up_t, b_t, g_t, om).T[:B]
-
-    resid = jnp.max(jnp.abs(jnp.minimum(
-        _apply_tridiag(jnp.asarray(lower, dtype), jnp.asarray(diag, dtype),
-                       jnp.asarray(upper, dtype), x) - jnp.asarray(b, dtype),
-        x - jnp.asarray(g, dtype),
-    )))
     return x, resid

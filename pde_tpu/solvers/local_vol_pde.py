@@ -1,4 +1,4 @@
-"""Local-volatility 1D PDE solver (log-space Crank-Nicolson), TPU-native.
+"""Local-volatility 1D PDE solver (log-space Crank-Nicolson).
 
 Generalizes :mod:`pde_tpu.solvers.bs_pde` (reference counterpart
 black_scholes_pde.hpp — constant vol) to a state- and time-dependent
@@ -13,16 +13,12 @@ in x = ln S.  Two routes:
   adjoint Greeks).
 * :func:`solve_fused` / :func:`solve_fused_batch` — the sigma(s, t)
   lattice and ALL per-step operator rows precomputed up front, then the
-  whole march inside ONE Pallas kernel (:mod:`pde_tpu.ops.cn1d_tv_fused`,
-  VMEM-resident lattice for production shapes).  The lattice build is the
-  REAL hot spot: pointwise bilinear lookups are gather-bound (192 ms for
-  a 256-option book — 70x the march itself), so interpolator surfaces
-  build the whole book's lattice as two one-hot MXU matmuls
-  (:func:`_band_lattice_batch_mxu`), taking the 200x100 256-option mixed
-  book to ~2.5 ms (~100k options/s on v5e; ~24x the reference's measured
-  serial C++ loop).  ``route="scan"`` swaps the kernel for a lax.scan +
-  batched-Thomas march (same bands; ~16 ms at B=512) — the fallback if a
-  Mosaic regression ever bites.
+  whole march inside ONE Pallas kernel (:mod:`pde_tpu.ops.cn1d_tv_fused`).
+  Pointwise bilinear lookups of a :class:`SurfaceInterpolator` surface are
+  gathers, so the book's lattice is built as two one-hot matrix products
+  (:func:`_band_lattice_batch_matmul`) in full float32 precision.
+  :func:`solve_batch` is the kernel's plain twin, a lax.scan +
+  batched-Thomas march over the same bands.
 
 Paired with :mod:`pde_tpu.models.local_vol` (AD Dupire extraction) this is
 the local-vol model family the reference lacks: calibrate Heston/Bates ->
@@ -42,7 +38,8 @@ import jax.numpy as jnp
 from ..core import grids
 from ..ops.tridiag import thomas, tridiagonal_solve
 
-__all__ = ["LVPDEResult", "solve", "solve_fused", "solve_fused_batch"]
+__all__ = ["LVPDEResult", "solve", "solve_fused", "solve_fused_batch",
+           "solve_batch"]
 
 
 class LVPDEResult(NamedTuple):
@@ -166,23 +163,22 @@ def _extract(V, s_grid, S0, K, is_call, american, n_space):
     return LVPDEResult(price, delta, gamma, V, s_grid, early_ex)
 
 
-def _band_lattice_batch_mxu(interp, sg, dx, T, r, q, n_time):
-    """Whole-book sigma lattice as TWO one-hot matmuls — no gathers.
+def _band_lattice_batch_matmul(interp, sg, dx, T, r, q, n_time):
+    """Whole-book sigma lattice as TWO one-hot matrix products — no gathers.
 
     The generic route (vmap of :func:`_band_lattice`) evaluates the
     surface pointwise: ~5M bilinear lookups for a 256-option 200x100 book,
-    each a searchsorted + four scattered 2D gathers — measured 192 ms on
-    v5e, DOMINATING the whole march (the fused kernel itself is ~1 ms).
-    Gathers are the TPU's weak spot; matmuls are its strong one.  Bilinear
+    each a searchsorted + four scattered 2D gathers.  Bilinear
     interpolation IS a sparse linear map, so build the two-nonzeros-per-row
-    weight matrices densely (one-hot comparisons — pure vector ops) and
-    contract on the MXU:
+    weight matrices densely (one-hot comparisons) and contract:
 
         vols_t = Wt @ vols        (B, nT+1, n_T) @ (n_T, n_K)
         sigma  = Wx @ vols_t^T    (B, n, n_K)    @ (B, n_K, nT+1)
 
-    ~200M MACs total — microseconds of MXU time.  Matches the pointwise
-    interpolator to f32 round-off (same clamping semantics).
+    Both contractions pin ``Precision.HIGHEST``: a GPU may otherwise run a
+    float32 product in TF32, which rounds the vols to about three digits.
+    Matches the pointwise interpolator to f32 round-off (same clamping
+    semantics).
     """
     f32 = sg.dtype
     n, B = sg.shape
@@ -206,7 +202,9 @@ def _band_lattice_batch_mxu(interp, sg, dx, T, r, q, n_time):
     kr = jnp.arange(n_t)
     Wt = ((kr == it[..., None]).astype(f32) * (1.0 - wt[..., None])
           + (kr == (it + 1)[..., None]).astype(f32) * wt[..., None])
-    vols_t = jnp.einsum("bjk,kx->bjx", Wt, vols.astype(f32))  # (B,nT+1,n_K)
+    hi = jax.lax.Precision.HIGHEST
+    vols_t = jnp.einsum("bjk,kx->bjx", Wt, vols.astype(f32),
+                        precision=hi)                         # (B,nT+1,n_K)
 
     # strike bracket + weight — per (option, node), shared across levels
     xq = jnp.log(sg).T                        # (B, n)
@@ -218,19 +216,20 @@ def _band_lattice_batch_mxu(interp, sg, dx, T, r, q, n_time):
     xr = jnp.arange(n_k)
     Wx = ((xr == ixk[..., None]).astype(f32) * (1.0 - wx[..., None])
           + (xr == (ixk + 1)[..., None]).astype(f32) * wx[..., None])
-    sig = jnp.einsum("bnx,bjx->jnb", Wx, vols_t)              # (nT+1,n,B)
+    sig = jnp.einsum("bnx,bjx->jnb", Wx, vols_t, precision=hi)  # (nT+1,n,B)
 
     L_m, L_c, L_p = _coeffs(sig, dx, r, q)
     return jnp.concatenate([L_m, L_c, L_p], axis=1)           # (nT+1,3n,B)
 
 
 def _book_bands(vol_fn, sg, dx, T, r, q, n_time):
-    """Book band lattice: the MXU route for :class:`SurfaceInterpolator`
-    surfaces, the generic vmapped route for arbitrary callables."""
+    """Book band lattice: the matrix-product route for
+    :class:`SurfaceInterpolator` surfaces, the generic vmapped route for
+    arbitrary callables."""
     from ..models.local_vol import SurfaceInterpolator
 
     if isinstance(vol_fn, SurfaceInterpolator):
-        return _band_lattice_batch_mxu(vol_fn, sg, dx, T, r, q, n_time)
+        return _band_lattice_batch_matmul(vol_fn, sg, dx, T, r, q, n_time)
     return jax.vmap(
         lambda sgb, Tb: _band_lattice(vol_fn, sgb, dx, Tb, r, q, n_time),
         in_axes=(1, 0), out_axes=2,
@@ -245,7 +244,7 @@ def _band_lattice(vol_fn, s_grid, dx, T, r, q, n_time):
     (explicit) and k+1 (implicit).  The whole sigma(s, t) lattice
     evaluates in one vmapped interpolation call instead of once per scan
     step — this is the "precompute the diagonals outside the march" half
-    of the speedup; the Pallas kernel is the other half."""
+    of the speedup; the fused kernel is the other half."""
     dt = T / n_time
     t_levels = T - dt * jnp.arange(n_time + 1, dtype=s_grid.dtype)
     t_levels = jnp.clip(t_levels, 0.0, T)
@@ -271,18 +270,14 @@ def solve_fused(
     scheme: str = "crank_nicolson",
     interpret: bool = False,
 ) -> LVPDEResult:
-    """:func:`solve` through the fused time-varying Pallas march
-    (:func:`pde_tpu.ops.cn1d_tv_fused.fused_cn_march_1d_tv`).
+    """:func:`solve` through the fused time-varying march kernel
+    (:func:`pde_tpu.ops.cn1d_tv_fused.fused_cn_march_1d_tv`), as the
+    one-option view of :func:`solve_fused_batch`.
 
-    The sigma(s, t) lattice and all per-step operator rows are built in
-    ONE tensor op, and the whole backward march runs inside one kernel
-    with V VMEM-resident — ~100x the scan path's wall clock at the default
-    grid on v5e (the scan re-evaluates the surface and round-trips V
-    through HBM every step).  Agrees with :func:`solve` to f32
-    accumulation tolerance (regression-tested); keep :func:`solve` for AD
-    (adjoint Greeks differentiate the scan, not the kernel).
-
-    ``interpret=True`` runs the kernel in interpreter mode for CPU tests.
+    Agrees with :func:`solve` to f32 accumulation tolerance
+    (regression-tested); keep :func:`solve` for AD (adjoint Greeks
+    differentiate the scan, not the kernel).  ``interpret=True`` runs the
+    kernel in the Pallas interpreter (CPU tests).
     """
     res = solve_fused_batch(
         vol_fn, S0, K=K, T=T, r=r, q=q, is_call=is_call,
@@ -291,45 +286,22 @@ def solve_fused(
         interpret=interpret,
     )
     # single-option view of the B=1 batch result (the batch path gets the
-    # MXU lattice builder; the old per-option pointwise build cost more
-    # than the march itself)
+    # matrix-product lattice builder)
     return LVPDEResult(
         res.price[0], res.delta[0], res.gamma[0], res.prices[0],
         res.spot_grid[0], res.early_exercise_optimal[0])
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("vol_fn", "is_call", "american", "n_space", "n_time",
-                     "s_min_mult", "s_max_mult", "scheme", "interpret"),
-)
-def _solve_fused_impl(vol_fn, S0, K, T, r, q, is_call, american,
-                      n_space, n_time, s_min_mult, s_max_mult, scheme,
-                      interpret):
-    from ..ops.cn1d_tv_fused import fused_cn_march_1d_tv
-
+def _book(S0, K, T, is_call, american):
+    """Broadcast the per-option inputs of a book along one batch axis."""
     f32 = jnp.float32
-    s_grid = jnp.exp(
-        jnp.linspace(jnp.log(K * s_min_mult), jnp.log(K * s_max_mult),
-                     n_space, dtype=f32)
-    )
-    dx = jnp.log(s_grid[-1] / s_grid[0]) / (n_space - 1)
-    w = {"crank_nicolson": 0.5, "implicit": 1.0}[scheme]
-
-    payoff = jnp.where(
-        is_call, jnp.maximum(s_grid - K, 0.0), jnp.maximum(K - s_grid, 0.0)
-    ).astype(f32)
-    bands = _band_lattice(vol_fn, s_grid, dx, T, r, q, n_time)
-    sc = jnp.asarray(
-        [T / n_time, r, q, K, float(is_call), float(american),
-         s_grid[0], s_grid[-1]], dtype=f32,
-    )
-
-    V = fused_cn_march_1d_tv(
-        payoff[:, None], bands[:, :, None], sc[:, None],
-        n_space=n_space, n_time=n_time, w=w, interpret=interpret,
-    )[:, 0]
-    return _extract(V, s_grid, S0, K, is_call, american, n_space)
+    arrs = (jnp.atleast_1d(jnp.asarray(S0, f32)),
+            jnp.atleast_1d(jnp.asarray(K, f32)),
+            jnp.atleast_1d(jnp.asarray(T, f32)),
+            jnp.atleast_1d(jnp.asarray(is_call)).astype(f32),
+            jnp.atleast_1d(jnp.asarray(american)).astype(f32))
+    B = max(a.shape[0] for a in arrs)
+    return tuple(jnp.broadcast_to(a, (B,)) for a in arrs)
 
 
 def solve_fused_batch(
@@ -348,41 +320,48 @@ def solve_fused_batch(
     s_max_mult: float = 5.0,
     scheme: str = "crank_nicolson",
     interpret: bool = False,
-    route: str = "pallas",
 ) -> LVPDEResult:
     """A whole option BOOK on one local-vol surface through ONE fused
-    Pallas march, the batch riding the 128 VPU lanes.
+    march kernel, float32.
 
     ``K``/``T``/``is_call``/``american`` broadcast along one leading batch
     axis (mixed strikes, maturities, calls/puts, European/American); each
     option gets its own K-scaled grid and its own dt = T_b/n_time, and the
-    per-option sigma(s, t) lattices evaluate as one vmapped call.  The
-    reference prices such books one C++ solve at a time
-    (black_scholes_pde.hpp:97-147 per option, generalized march 234-274).
-
-    ``route``: ``"pallas"`` (default) runs the whole march inside the
-    VMEM-resident fused kernel; ``"scan"`` swaps in the lax.scan +
-    batched-Thomas march (`_solve_batch_scan_impl`) — slower, but uses a
-    true divide (no M-matrix pivot condition) and needs no Mosaic.
+    per-option sigma(s, t) lattices evaluate as one call.  The reference
+    prices such books one C++ solve at a time (black_scholes_pde.hpp:97-147
+    per option, generalized march 234-274).  :func:`solve_batch` is the
+    plain XLA twin the kernel is tested and measured against.
+    ``interpret=True`` runs the kernel in the Pallas interpreter (CPU tests).
     """
-    f32 = jnp.float32
-    K_b = jnp.atleast_1d(jnp.asarray(K, f32))
-    T_b = jnp.atleast_1d(jnp.asarray(T, f32))
-    call_b = jnp.atleast_1d(jnp.asarray(is_call)).astype(f32)
-    amer_b = jnp.atleast_1d(jnp.asarray(american)).astype(f32)
-    S0_b = jnp.atleast_1d(jnp.asarray(S0, f32))
-    B = max(a.shape[0] for a in (K_b, T_b, call_b, amer_b, S0_b))
-    K_b, T_b, call_b, amer_b, S0_b = (
-        jnp.broadcast_to(a, (B,)) for a in (K_b, T_b, call_b, amer_b, S0_b)
-    )
-    if route == "scan":
-        return _solve_batch_scan_impl(
-            vol_fn, S0_b, K_b, T_b, r, q, call_b, amer_b,
-            n_space, n_time, s_min_mult, s_max_mult, scheme,
-        )
+    S0_b, K_b, T_b, call_b, amer_b = _book(S0, K, T, is_call, american)
     return _solve_fused_batch_impl(
         vol_fn, S0_b, K_b, T_b, r, q, call_b, amer_b,
         n_space, n_time, s_min_mult, s_max_mult, scheme, interpret,
+    )
+
+
+def solve_batch(
+    vol_fn: Callable,
+    S0,
+    *,
+    K,
+    T,
+    r=0.0,
+    q=0.0,
+    is_call=True,
+    american=False,
+    n_space: int = 200,
+    n_time: int = 100,
+    s_min_mult: float = 0.2,
+    s_max_mult: float = 5.0,
+    scheme: str = "crank_nicolson",
+) -> LVPDEResult:
+    """:func:`solve_fused_batch` as plain XLA: the same bands and step
+    math, the time loop a ``lax.scan`` over batched Thomas solves."""
+    S0_b, K_b, T_b, call_b, amer_b = _book(S0, K, T, is_call, american)
+    return _solve_batch_scan_impl(
+        vol_fn, S0_b, K_b, T_b, r, q, call_b, amer_b,
+        n_space, n_time, s_min_mult, s_max_mult, scheme,
     )
 
 
@@ -419,23 +398,11 @@ def _solve_fused_batch_impl(vol_fn, S0, K, T, r, q, call_f, amer_f,
         call_f, amer_f, sg[0, :], sg[-1, :],
     ])
 
-    # pad EVERY batch to full 128-lane blocks (repeat lane 0): sub-128
-    # blocks march measurably slower on misaligned lane tiles (see
-    # solvers/heston_adi.py); the bands are already built, so padding is a
-    # copy, not extra surface evaluation
-    Bp = ((B + 127) // 128) * 128
-    padn = Bp - B
-
-    def padl(arr):
-        if padn == 0:
-            return arr
-        reps = jnp.repeat(arr[..., 0:1], padn, axis=-1)
-        return jnp.concatenate([arr, reps], axis=-1)
-
-    V = fused_cn_march_1d_tv(
-        padl(pay), padl(bands), padl(sc),
-        n_space=n_space, n_time=n_time, w=w, interpret=interpret,
-    )[:, :B]                                            # (n, B)
+    with jax.named_scope("local_vol_fused_march"):
+        V = fused_cn_march_1d_tv(
+            pay, bands, sc, n_space=n_space, n_time=n_time, w=w,
+            interpret=interpret,
+        )                                               # (n, B)
 
     res = jax.vmap(
         lambda Vb, sgb, S0b, Kb, cb, ab: _extract(
@@ -452,21 +419,14 @@ def _solve_fused_batch_impl(vol_fn, S0, K, T, r, q, call_f, amer_f,
 )
 def _solve_batch_scan_impl(vol_fn, S0, K, T, r, q, call_f, amer_f,
                            n_space, n_time, s_min_mult, s_max_mult, scheme):
-    """Precomputed-bands scan march: the ``route="scan"`` FALLBACK.
+    """Precomputed-bands scan march: the twin behind :func:`solve_batch`.
 
-    Same math as the Pallas kernel (`_solve_fused_batch_impl`, the
-    default ``route="pallas"``) but the time loop is a `lax.scan` whose
-    per-step tridiagonal solves go through the batched Thomas
-    (`ops.tridiag.thomas`, options on the leading batch axis).  The whole
-    sigma(s, t) lattice and all per-step operator rows still build as ONE
-    tensor op before the march — the scan streams them as xs.  Kept as
-    the escape hatch if a Mosaic regression ever bites the fused kernel,
-    and for books where the M-matrix condition of the kernel's
-    rsqrt-pivot (ops/cn1d_tv_fused.py) is violated: this route uses a
-    true divide.  Measured on v5e at 200x100, B=512: ~16 ms/book for the
-    march (module header) vs ~2.5 ms total for the VMEM-resident fused
-    kernel on a 256-option book (~100k options/s) — the fused route wins
-    because the march and lattice both stay on-chip.
+    Same math as the fused kernel (`_solve_fused_batch_impl`) but the time
+    loop is a `lax.scan` whose per-step
+    tridiagonal solves go through the batched Thomas (`ops.tridiag.thomas`,
+    options on the leading batch axis).  The whole sigma(s, t) lattice and
+    all per-step operator rows still build as ONE tensor op before the
+    march — the scan streams them as xs.
     """
     import math
 

@@ -6,12 +6,12 @@ computes on a grid (:mod:`pde_tpu.solvers.heston_adi` ``american_method=
 the only route that scales past two state dimensions.  The reference
 platform has no LSM engine.
 
-TPU-native design: paths come from the stored-path QE simulation
+Device-native design: paths come from the stored-path QE simulation
 (:func:`pde_tpu.models.heston_mc.simulate_qe_paths`), the backward
 induction is one ``lax.scan`` over the time-reversed path array, and each
 step's cross-sectional regression is a tiny (k x k) normal-equations solve
 whose Gram matrix is an (n_paths x k)T (n_paths x k) matmul — the one spot
-in the framework's MC stack that touches the MXU.  No data-dependent
+in the framework's MC stack that is a matrix product.  No data-dependent
 control flow: ITM-path selection is a weight vector, not a gather, so the
 whole pricer jits to a single XLA program.
 
@@ -124,7 +124,7 @@ def lsm_backward_induction(
         sd = jnp.where(is_const, 1.0, sd)
         phi = (phi - mu) / sd
         wphi = phi * w[:, None]
-        gram = wphi.T @ phi  # local (k x k) Gram on the MXU ...
+        gram = wphi.T @ phi  # local (k x k) Gram as a matmul ...
         if axis_name is not None:
             gram = jax.lax.psum(gram, axis_name)  # ... then one tiny psum
         gram = gram / n_itm
@@ -219,7 +219,7 @@ def price_american_lsm_batch(
     n_paths: int = 65536,
     antithetic: bool = True,
 ):
-    """A whole American book off ONE path set, with the book axis on the MXU.
+    """A whole American book off ONE path set, with the book axis as a matmul dimension.
 
     The naive batching (vmap the single-contract induction over strikes)
     materializes a weighted ``(n_paths, 6)`` feature copy PER STRIKE every
@@ -228,7 +228,7 @@ def price_american_lsm_batch(
     ``phi (n_paths, 6)`` per step (the regression prediction is invariant
     to scaling the spot feature, and standardization absorbs the per-strike
     S/K normalization exactly), and computes EVERY contract's regression
-    moments as three matmuls with the book axis as the MXU M dimension:
+    moments as three matmuls with the book axis as the matmul M dimension:
 
         Sraw = w^T  @ (phi ⊗ phi)   (B, 6, 6)  all Gram matrices at once
         m1   = w^T  @ phi           (B, 6)     all ITM feature means

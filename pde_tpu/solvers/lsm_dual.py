@@ -33,7 +33,7 @@ is a martingale in the enlarged filtration even with inner-sample noise
 holds in expectation — inner noise only pushes the bound UP, never breaks
 it.  All values are kept in time-0 discounted units.
 
-TPU-native design: the outer x inner bundle is one flat path axis (a
+Device-native design: the outer x inner bundle is one flat path axis (a
 ``(n_outer * n_inner,)`` QE scan per start date — the same lane-parallel
 shape as every other MC engine here); the per-date Python loop unrolls into
 one XLA program with static trip counts.  Cost is O(n_steps^2 / 2) QE steps

@@ -1,4 +1,4 @@
-"""Jump-diffusion PIDE solver (Merton / Kou), TPU-native.
+"""Jump-diffusion PIDE solver (Merton / Kou).
 
 Prices European and American options under a 1D jump-diffusion
 
@@ -14,9 +14,9 @@ where ``N`` is Poisson(lam) and the log-jump ``Y`` is either lognormal
 The reference framework has no PIDE solver at all (its jump machinery stops
 at the Bates characteristic function this module is cross-validated against);
 this solver extends the 1D PDE family (solvers/bs_pde.py, matching its
-scheme/boundary conventions) with a non-local term designed for the TPU:
+scheme/boundary conventions) with a non-local term designed for the accelerator:
 
-* **The jump integral is one MXU matmul.** On the uniform log grid the
+* **The jump integral is one matmul.** On the uniform log grid the
   convolution ``INT V(x_i + y) nu(y) dy`` is a Toeplitz contraction
   ``W @ V`` with ``W[i, j] = w_j * nu(x_j - x_i)`` (trapezoid weights).
   Batched over a strike strip, ``V`` is ``(n_space, B)`` and the whole
@@ -159,7 +159,7 @@ def _jump_matrix(jumps, x, dx):
 
     Trapezoid weights over the grid support; mass beyond the edges is the
     tail corrections' job.  O(n^2) storage is deliberate: n <= ~1024 keeps W
-    in VMEM-friendly tiles and the contraction on the MXU.
+    in cache-friendly tiles and the contraction as a matmul.
     """
     diff = x[None, :] - x[:, None]          # (i, j) -> x_j - x_i
     w = jnp.full(x.shape, dx, x.dtype).at[0].set(0.5 * dx).at[-1].set(0.5 * dx)

@@ -1,6 +1,6 @@
 """Matrix utilities for risk and portfolio analytics.
 
-TPU-native equivalents of the reference's Eigen helpers
+JAX equivalents of the reference's Eigen helpers
 (src/cpp/core/matrix_utils.hpp:42-318): covariance/correlation estimation,
 positive-definiteness repair, Cholesky, safe inversion and EWMA covariance.
 All functions are pure jnp and differentiable where meaningful.
@@ -107,7 +107,7 @@ def solve_positive_definite(a: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 def ewma_covariance(returns: jnp.ndarray, lam: float = 0.94) -> jnp.ndarray:
     """Exponentially-weighted covariance (RiskMetrics lambda=0.94 default).
 
-    TPU-native formulation of ewma_covariance
+    JAX formulation of ewma_covariance
     (src/cpp/core/matrix_utils.hpp:287): a ``lax.scan`` over observations,
     Sigma_t = lam * Sigma_{t-1} + (1 - lam) * r_t r_t^T.
     """

@@ -1,6 +1,6 @@
 """Scalar/vector statistical primitives.
 
-TPU-native equivalents of the reference math utils
+JAX equivalents of the reference math utils
 (src/cpp/core/math_utils.hpp:26-56): mean/variance/std and the standard
 normal CDF/PDF, all vectorized jnp functions.
 """

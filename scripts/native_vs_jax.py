@@ -1,4 +1,4 @@
-"""Measured native-C++ vs JAX/TPU comparison on THIS machine.
+"""Measured native-C++ vs JAX comparison on THIS machine.
 
 Role parity with the reference's benchmarks/python_vs_cpp.py (SURVEY.md §6):
 instead of quoting the reference's constants, run the same workloads through

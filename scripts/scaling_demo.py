@@ -5,13 +5,13 @@ Sweeps device counts (1/2/4/8 virtual CPU devices) and, for each, runs the
 sharded calibration step over a growing number of underlyings, printing a
 weak-scaling table: underlyings are sharded over the ``dp`` axis and the
 quote axis over ``quotes``; the LM normal equations all-reduce over quotes
-(`jax.lax.psum` riding ICI on real hardware).
+(`jax.lax.psum` between devices on real hardware).
 
 This mirrors how the driver's ``dryrun_multichip`` validates the sharding,
 but measures throughput so the scaling SHAPE is visible without real chips.
 Absolute numbers on a forced-host mesh are meaningless; the point is that
 per-device work stays constant as devices grow (weak scaling), which is the
-property that transfers to a real v5e pod slice.
+property that transfers to real multi-device hardware.
 
 Run: python scripts/scaling_demo.py
 """

@@ -1,6 +1,6 @@
 // pde_host: native host-side runtime engine for pde_tpu.
 //
-// The TPU (JAX/XLA/Pallas) owns the device compute path; this library owns
+// The accelerator (JAX/XLA/Pallas) owns the device compute path; this library owns
 // the latency-critical HOST paths, the role C++ plays in the reference
 // platform (src/cpp in dharvpat/PDE): stream processing, the backtest inner
 // loop, and float64 numerical oracles used by the test-suite to cross-check

@@ -1,17 +1,19 @@
 """Test configuration: CPU backend, 8 virtual devices, float64 parity mode.
 
-This is the TPU-build analog of the reference's test substitutions (SQLite
-for TimescaleDB, mock brokers, mock metrics — SURVEY.md section 4): tests run
-on a virtual 8-device CPU mesh so multi-chip sharding logic is exercised
-without hardware, and with x64 enabled so numerical parity against the C++
-reference semantics (1e-8 price / 1e-6 implied vol) is meaningful.
+The analog of the reference's test substitutions (SQLite for TimescaleDB,
+mock brokers, mock metrics — SURVEY.md section 4): tests run on a virtual
+8-device CPU mesh so multi-device sharding logic is exercised without
+hardware, and with x64 enabled so numerical parity against the C++
+reference semantics (1e-8 price / 1e-6 implied vol) is meaningful.  Pallas
+kernels run in interpret mode; tests that need the GPU itself carry the
+``gpu`` marker and skip here (run them with ``python chip_smoke.py``).
 """
 
 import os
 
 # Must be set before jax is imported anywhere in the test process.  Force CPU
-# even if the ambient environment points at a TPU platform: the test-suite is
-# the float64 parity/virtual-mesh harness, the TPU is the bench path.
+# even on a machine with a GPU: the test-suite is the float64 parity /
+# virtual-mesh harness, the GPU is the chip_smoke/bench path.
 os.environ["JAX_PLATFORMS"] = "cpu"
 _flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in _flags:
@@ -27,9 +29,11 @@ jax.config.update("jax_enable_x64", True)
 # Persistent XLA compilation cache: the suite is compile-bound on CPU (PDE
 # marches, shard_map programs, the jitted calibration pipeline), and the
 # cache survives processes — repeat runs skip most of that cost (measured
-# ~4x on the ADI march).  Safe to delete at any time.
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(__file__), ".jax_cache"))
+# ~4x on the ADI march).  JAX_COMPILATION_CACHE_DIR wins when it is set.
+# Safe to delete at any time.
+from pde_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache(os.path.join(os.path.dirname(__file__), ".jax_cache"))
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 

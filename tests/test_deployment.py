@@ -150,20 +150,21 @@ class TestK8sBase:
             sc = tpl["spec"].get("securityContext", {})
             assert sc.get("runAsNonRoot") is True, d["metadata"]["name"]
 
-    def test_calibration_runs_on_tpu_nodes(self, manifests):
+    def test_calibration_runs_on_gpu_nodes(self, manifests):
         cal = next(d for d in self._by_kind(manifests, "Deployment")
                    if d["metadata"]["name"] == "pde-tpu-calibration")
         spec = cal["spec"]["template"]["spec"]
-        assert any("tpu" in k for k in spec.get("nodeSelector", {}))
+        assert "cloud.google.com/gke-accelerator" in spec.get("nodeSelector", {})
         res = spec["containers"][0]["resources"]
-        assert "google.com/tpu" in res["requests"]
+        assert "nvidia.com/gpu" in res["requests"]
+        assert "nvidia.com/gpu" in res["limits"]
 
-    def test_calibration_batch_job_requests_tpu(self, manifests):
+    def test_calibration_batch_job_requests_gpu(self, manifests):
         jobs = [d for d in self._by_kind(manifests, "CronJob")
                 if "calibration" in d["metadata"]["name"]]
         assert jobs
         c = jobs[0]["spec"]["jobTemplate"]["spec"]["template"]["spec"]["containers"][0]
-        assert "google.com/tpu" in c["resources"]["requests"]
+        assert "nvidia.com/gpu" in c["resources"]["requests"]
 
     def test_execution_is_a_recreate_singleton(self, manifests):
         ex = next(d for d in self._by_kind(manifests, "Deployment")
@@ -215,10 +216,10 @@ class TestK8sOverlays:
         assert "../../base" in kust["resources"]
         assert kust.get("namespace"), env
 
-    def test_dev_strips_tpu(self):
+    def test_dev_strips_gpu(self):
         kust = yaml.safe_load((K8S / "overlays" / "dev" / "kustomization.yaml").read_text())
         text = yaml.dump(kust)
-        assert "google.com~1tpu" in text  # removes the TPU resource requests
+        assert "nvidia.com~1gpu" in text  # removes the GPU resource requests
 
     def test_prod_scales_up(self):
         kust = yaml.safe_load((K8S / "overlays" / "prod" / "kustomization.yaml").read_text())
@@ -248,9 +249,9 @@ class TestHelmChart:
         for svc in values["services"].values():
             assert "enabled" in svc and "replicas" in svc and "resources" in svc
 
-    def test_tpu_knobs(self, values):
-        tpu = values["services"]["calibration"]["tpu"]
-        assert {"enabled", "accelerator", "topology", "chips"} <= set(tpu)
+    def test_gpu_knobs(self, values):
+        gpu = values["services"]["calibration"]["gpu"]
+        assert {"enabled", "accelerator", "count"} <= set(gpu)
 
     def test_security_defaults(self, values):
         assert values["securityContext"]["runAsNonRoot"] is True

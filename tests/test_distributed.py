@@ -1,9 +1,9 @@
 """Multi-host smoke test: two REAL processes join via jax.distributed.
 
-Round-1 gap (VERDICT): ``initialize_distributed`` was an untested wrapper —
-the only multi-host codepath existed on faith.  This exercises it without
+``initialize_distributed`` is the only multi-host codepath; this exercises
+it without
 hardware: two local CPU processes, one coordinator, assert the global device
-view spans both processes and a cross-process psum works (the DCN analog of
+view spans both processes and a cross-process psum works (the cross-host analog of
 the reference's K8s replica scale-out, SURVEY.md §2.3).
 """
 
@@ -45,7 +45,7 @@ _WORKER = textwrap.dedent(
     assert jax.process_count() == 2
     assert len(jax.local_devices()) == 1
 
-    # cross-process collective: allgather each process's id over DCN
+    # cross-process collective: allgather each process's id across hosts
     import jax.numpy as jnp
     from jax.experimental import multihost_utils
 
@@ -127,8 +127,8 @@ _STEP_WORKER = textwrap.dedent(
     from pde_tpu.parallel.mesh import make_mesh, sharded_calibration_step
     from pde_tpu.parallel.mesh import _price_population
 
-    # 2x2 mesh: dp spans the two PROCESSES (DCN analog), quotes the two
-    # devices within each process (ICI analog)
+    # 2x2 mesh: dp spans the two PROCESSES (cross-host analog), quotes the
+    # two devices within each process (within-host analog)
     mesh = make_mesh(4, shape=(2, 2))
     U, Q = 2, 8
 
@@ -182,7 +182,7 @@ _STEP_WORKER = textwrap.dedent(
 @pytest.mark.slow
 def test_two_process_sharded_calibration_step(tmp_path):
     """The FULL sharded LM calibration step SPMD across two processes: dp
-    axis over DCN (process boundary), quotes axis over each process's local
+    axis across the process boundary, quotes axis over each process's local
     devices — the multi-host analog of the single-process mesh tests."""
     worker = tmp_path / "step_worker.py"
     worker.write_text(_STEP_WORKER)

@@ -171,7 +171,7 @@ class TestCoverageGaps:
 
         from pde_tpu.ops import tridiag
 
-        # small batched regime -> thomas path
+        # small batch
         B, n = 4, 32
         lower = jnp.asarray(rng.uniform(-1, 1, (B, n - 1)))
         upper = jnp.asarray(rng.uniform(-1, 1, (B, n - 1)))
@@ -181,7 +181,7 @@ class TestCoverageGaps:
         ref = tridiag.thomas(lower, diag, upper, b)
         np.testing.assert_allclose(np.asarray(x), np.asarray(ref), rtol=1e-10)
 
-        # single long system -> PCR path
+        # single long system
         n = 8192
         lower1 = jnp.asarray(rng.uniform(-1, 1, n - 1))
         upper1 = jnp.asarray(rng.uniform(-1, 1, n - 1))

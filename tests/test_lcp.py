@@ -112,27 +112,25 @@ class TestHJBPSOR:
         assert np.all(res.value_function >= g - 1e-6)
 
 
-class TestPallasPSOR:
-    def test_interpret_matches_jnp(self, rng):
-        """The fused Pallas PSOR (interpret mode on CPU) reproduces the
-        jnp red-black PSOR on a batch of diagonally dominant LCPs."""
-        from pde_tpu.solvers.lcp import projected_sor, projected_sor_pallas
+class TestPSORAgainstExactLCP:
+    @pytest.mark.parametrize("B, n", [(1, 16), (5, 64), (3, 127)])
+    def test_psor_converges_to_brennan_schwartz(self, rng, B, n):
+        """Red-black PSOR reaches the exact one-pass LCP solution on
+        batches of put-shaped obstacle problems (exercise region on the
+        left), ragged lengths included."""
+        from pde_tpu.solvers.lcp import brennan_schwartz, projected_sor
 
-        B, n = 5, 64
-        lower = rng.uniform(-0.4, -0.1, (B, n - 1))
-        upper = rng.uniform(-0.4, -0.1, (B, n - 1))
-        diag = 2.0 + rng.uniform(0, 1, (B, n))
-        b = rng.uniform(-1, 1, (B, n))
-        g = rng.uniform(-0.5, 0.5, (B, n))
-        import jax.numpy as jnp
-
+        lower = np.broadcast_to(-rng.uniform(0.1, 0.4, (B, 1)), (B, n - 1))
+        upper = np.broadcast_to(-rng.uniform(0.1, 0.4, (B, 1)), (B, n - 1))
+        diag = np.broadcast_to(1.05 - lower[:, :1] - upper[:, :1], (B, n))
+        g = np.broadcast_to(np.maximum(0.0, np.linspace(1.0, -1.0, n)), (B, n))
+        b = np.full((B, n), 0.01)
         args = tuple(map(jnp.asarray, (lower, diag, upper, b, g)))
-        # f32 both sides for a like-for-like comparison
-        f32 = tuple(a.astype(jnp.float32) for a in args)
-        x_ref, r_ref = projected_sor(*f32, n_iter=120)
-        x_pal, r_pal = projected_sor_pallas(*f32, n_iter=120, interpret=True)
-        np.testing.assert_allclose(np.asarray(x_pal), np.asarray(x_ref), atol=5e-5)
-        assert float(r_pal) < 1e-2
+        x_ex, r_ex = brennan_schwartz(*args)
+        x_ps, r_ps = projected_sor(*args, n_iter=400)
+        assert float(r_ex) < 1e-10
+        np.testing.assert_allclose(np.asarray(x_ps), np.asarray(x_ex),
+                                   atol=1e-6)
 
 
 class TestBrennanSchwartz:

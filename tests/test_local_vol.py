@@ -185,8 +185,8 @@ class TestLocalVolPDE:
         assert bool(am.early_exercise_optimal)
 
     def test_fused_march_matches_scan(self):
-        """The fused time-varying Pallas march (ops/cn1d_tv_fused) must
-        agree with the scan path on a sloped smile surface — single solve
+        """The fused time-varying march kernel (ops/cn1d_tv_fused, interpret
+        mode on CPU) must agree with the scan path on a sloped smile surface — single solve
         and a mixed book (strikes x maturities x call/put x Eu/Am) —
         to f32 accumulation tolerance."""
         vol_fn = lambda s, t: (  # noqa: E731
@@ -217,11 +217,10 @@ class TestLocalVolPDE:
                 err_msg=f"book lane {i}")
 
     def test_fused_low_vol_high_rate_book(self):
-        """Convection-dominated stress for the fused kernel's rsqrt pivot
-        (ops/cn1d_tv_fused.py M-matrix condition): very low local vol
-        with a large |r-q| drift on a coarse grid.  The fused route must
-        stay finite and agree with the scan route (true divide, no pivot
-        condition) to f32 tolerance."""
+        """Convection-dominated stress: very low local vol with a large
+        |r-q| drift on a coarse grid, where the implicit operator loses
+        its M-matrix sign pattern.  The fused route must stay finite and
+        agree with the scan route to f32 tolerance."""
         vol_fn = lambda s, t: jnp.full_like(s, 0.03)  # noqa: E731
         kw = dict(r=0.12, q=0.0, n_space=96, n_time=24)
         Ks = jnp.asarray([95.0, 100.0, 105.0, 100.0])
@@ -230,14 +229,35 @@ class TestLocalVolPDE:
         am = jnp.asarray([0.0, 1.0, 0.0, 1.0])
         fus = local_vol_pde.solve_fused_batch(
             vol_fn, S0, K=Ks, T=Ts, is_call=cs, american=am,
-            interpret=True, route="pallas", **kw)
-        scn = local_vol_pde.solve_fused_batch(
-            vol_fn, S0, K=Ks, T=Ts, is_call=cs, american=am,
-            route="scan", **kw)
+            interpret=True, **kw)
+        scn = local_vol_pde.solve_batch(
+            vol_fn, S0, K=Ks, T=Ts, is_call=cs, american=am, **kw)
         f = np.asarray(fus.price)
         s = np.asarray(scn.price)
         assert np.all(np.isfinite(f)), f
         np.testing.assert_allclose(f, s, rtol=2e-4, atol=2e-4)
+
+    @pytest.mark.parametrize("B", [1, 15, 17, 33])
+    def test_fused_book_ragged_batches(self, B):
+        """Books that are not a multiple of the kernel's option block are
+        padded with copies of option 0 and stripped; every option matches
+        the scan route."""
+        vol_fn = lambda s, t: (  # noqa: E731
+            0.22 + 0.04 * jnp.tanh((100.0 - s) / 25.0))
+        kw = dict(r=0.03, q=0.0, n_space=40, n_time=6)
+        Ks = jnp.asarray(np.linspace(80.0, 120.0, B))
+        Ts = jnp.asarray(np.linspace(0.3, 1.2, B))
+        cs = jnp.asarray((np.arange(B) % 2).astype(float))
+        am = jnp.asarray((np.arange(B) % 3 == 0).astype(float))
+        fus = local_vol_pde.solve_fused_batch(
+            vol_fn, S0, K=Ks, T=Ts, is_call=cs, american=am,
+            interpret=True, **kw)
+        scn = local_vol_pde.solve_batch(
+            vol_fn, S0, K=Ks, T=Ts, is_call=cs, american=am, **kw)
+        assert fus.price.shape == (B,)
+        np.testing.assert_allclose(np.asarray(fus.prices),
+                                   np.asarray(scn.prices), rtol=1e-5,
+                                   atol=2e-4)
 
     @pytest.mark.slow
     def test_heston_dupire_roundtrip(self):
@@ -266,7 +286,7 @@ def test_mxu_band_lattice_matches_pointwise():
     import math
 
     from pde_tpu.solvers.local_vol_pde import (
-        _band_lattice, _band_lattice_batch_mxu,
+        _band_lattice, _band_lattice_batch_matmul,
     )
 
     f32 = jnp.float32
@@ -281,12 +301,12 @@ def test_mxu_band_lattice_matches_pointwise():
     x = jnp.linspace(math.log(0.2), math.log(5.0), n, dtype=f32)
     dx = float(x[1] - x[0])
     sg = jnp.exp(x)[:, None] * K[None, :]
-    mxu = _band_lattice_batch_mxu(dupire_interp, sg, dx, T, 0.04, 0.01,
-                                  n_time)
+    mm = _band_lattice_batch_matmul(dupire_interp, sg, dx, T, 0.04, 0.01,
+                                    n_time)
     ref = jax.vmap(
         lambda sgb, Tb: _band_lattice(dupire_interp, sgb, dx, Tb,
                                       0.04, 0.01, n_time),
         in_axes=(1, 0), out_axes=2,
     )(sg, T)
-    np.testing.assert_allclose(np.asarray(mxu), np.asarray(ref),
+    np.testing.assert_allclose(np.asarray(mm), np.asarray(ref),
                                rtol=2e-5, atol=2e-5)

@@ -73,7 +73,7 @@ class TestRecovery:
         assert abs(float(res.params.sigma) - 2.0) / 2.0 < 0.1
 
     def test_vmapped_fit_over_spreads(self, params):
-        """Batch-fit many spreads in one jitted call — the TPU-native replacement
+        """Batch-fit many spreads in one jitted call — the batched replacement
         for the per-pair Python loop."""
         keys = jax.random.split(jax.random.PRNGKey(3), 8)
         paths = jax.vmap(lambda k: ou.simulate(params, 100.0, 4.0, 1008, k))(keys)

@@ -28,21 +28,32 @@ def test_device_timer_sections():
     assert rep["work"]["total_s"] >= rep["work"]["median_s"]
 
 
-class TestDeviceKeepalive:
-    def test_context_manager_runs_and_stops(self):
-        import threading
+def test_time_jitted_times_every_run():
+    calls = []
 
-        from pde_tpu.utils.profiling import device_keepalive
+    @jax.jit
+    def f(x):
+        return x + 1.0
 
-        before = threading.active_count()
-        with device_keepalive(interval_s=0.05):
-            import jax.numpy as jnp
+    def counted(x):
+        calls.append(1)
+        return f(x)
 
-            assert float(jnp.asarray(1.0) + 1.0) == 2.0
-            assert any(t.name == "pde-keepalive" for t in threading.enumerate())
-        # thread joins on exit
-        for t in threading.enumerate():
-            if t.name == "pde-keepalive":
-                t.join(timeout=2.0)
-                assert not t.is_alive()
-        assert threading.active_count() <= before + 1
+    t = time_jitted(counted, jnp.ones(8), n_runs=4)
+    assert len(calls) == 5          # one warm-up + four timed runs
+    assert len(t.runs_s) == 4
+    assert sorted(t.runs_s)[1] <= t.median_run_s <= sorted(t.runs_s)[2]
+
+
+def test_device_timer_does_not_swallow_device_errors(monkeypatch):
+    """A failure while fencing the device propagates out of the section."""
+    import pytest
+
+    def broken(_):
+        raise RuntimeError("device lost")
+
+    monkeypatch.setattr(jax, "device_get", broken)
+    timer = DeviceTimer()
+    with pytest.raises(RuntimeError, match="device lost"):
+        with timer("work"):
+            pass

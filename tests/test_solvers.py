@@ -80,8 +80,8 @@ class TestBSPDE:
             bs_pde.solve(bs_pde.BSPDEParams(sigma=-0.1), 100.0)
 
     def test_solve_fused_batch_matches_scan(self):
-        """The fused 1D Pallas book march (interpret mode on CPU) reproduces
-        the per-option scan solves — mixed vols, maturities, strikes,
+        """The fused 1D book march (the local-vol kernel with constant rows,
+        interpret mode on CPU) reproduces the per-option scan solves — mixed vols, maturities, strikes,
         calls/puts, European/American in ONE batch."""
         sig = np.array([0.15, 0.2, 0.3, 0.25, 0.4])
         T = np.array([0.25, 0.5, 1.0, 1.5, 0.75])
@@ -108,9 +108,10 @@ class TestBSPDE:
             )
 
     def test_solve_fused_batch_multiblock_padding(self):
-        """A batch that is not a lane multiple pads with copies of lane 0 and
-        strips the padding; implicit-Euler scheme variant covered too."""
-        B = 130  # pads to 256 -> two 128-lane grid blocks
+        """A ragged book (130 options: the kernel pads to whole blocks) with
+        the implicit-Euler scheme matches per-option solves at both ends and
+        in the middle."""
+        B = 130
         K = np.linspace(80.0, 120.0, B)
         T = np.linspace(0.3, 1.2, B)
         is_call = (np.arange(B) % 2).astype(float)
@@ -211,8 +212,8 @@ class TestHestonADI:
             )
 
     def test_solve_fused_matches_scan(self):
-        """The fully-fused Pallas march (interpret mode on CPU) reproduces
-        the scan solver on the same grid — European call/put and American."""
+        """The fused march kernel (interpret mode on CPU) reproduces the
+        scan solver on the same grid — European call/put and American."""
         small = self.PARAMS._replace(n_spot=24, n_vol=12, n_time=8)
         for variant in (
             small,
@@ -231,8 +232,8 @@ class TestHestonADI:
             )
 
     def test_solve_fused_batch_matches_scan(self):
-        """The lane-batched fused march (interpret mode on CPU) reproduces
-        the per-option scan solves — mixed strikes, maturities, rates,
+        """The fused march kernel (interpret mode on CPU) reproduces the
+        per-option scan solves — mixed strikes, maturities, rates,
         calls/puts, and European/American in ONE batch; both American
         treatments."""
         kw = dict(n_spot=24, n_vol=12, n_time=8)
@@ -265,10 +266,10 @@ class TestHestonADI:
                 )
 
     def test_solve_fused_batch_multiblock_padding(self):
-        """A batch that is not a multiple of 128 pads to full lane blocks and
-        runs as a Mosaic grid; results match the scan path row-for-row."""
+        """A 130-option book (one program per option) matches the scan
+        path row for row."""
         kw = dict(n_spot=16, n_vol=8, n_time=4)
-        B = 130  # pads to 256 -> two 128-lane grid blocks
+        B = 130
         K = np.linspace(80.0, 120.0, B)
         T = np.linspace(0.3, 1.2, B)
         is_call = (np.arange(B) % 2).astype(float)
@@ -285,28 +286,39 @@ class TestHestonADI:
             np.asarray(batch.price), np.asarray(ref.price), atol=5e-4
         )
 
-    def test_solve_fused_batch_sweep_variants_agree(self):
-        """The batch-ceiling kernel variants (unrolled sweep loops; PCR
-        v-solve with precomputed level coefficients) must reproduce the
-        baseline serial-Thomas march — mixed calls/puts and Eu/Am
-        (benchmarks/adi_ceiling_experiment.py measures their speed on
-        the chip; this pins their math)."""
-        kw = dict(n_spot=32, n_vol=16, n_time=8, interpret=True)
-        K = np.array([90.0, 100.0, 110.0, 100.0])
-        T = np.array([0.5, 1.0, 1.5, 1.0])
-        is_call = np.array([1.0, 0.0, 1.0, 0.0])
-        amer = np.array([0.0, 1.0, 0.0, 1.0])
-        base = heston_adi.solve_fused_batch(
+    @pytest.mark.parametrize("nS, nv, nT, B", [
+        (16, 8, 3, 1), (17, 9, 2, 3), (33, 14, 2, 5), (64, 30, 1, 2)])
+    def test_fused_kernel_pads_any_grid(self, nS, nv, nT, B):
+        """Grids whose sides are not powers of two (the kernel pads rows to
+        next_pow2(nS) and columns to next_pow2(nv + 2)) and odd batch sizes
+        march like the scan twin."""
+        kw = dict(n_spot=nS, n_vol=nv, n_time=nT)
+        K = np.linspace(90.0, 110.0, B)
+        T = np.linspace(0.5, 1.5, B)
+        is_call = (np.arange(B) % 2).astype(float)
+        fus = heston_adi.solve_fused_batch(
             2.0, 0.04, 0.3, -0.7, 0.04, 0.05, 0.02, T, K, is_call, 100.0,
-            american=amer, **kw)
-        for extra in (dict(unroll=4), dict(pcr_v=True),
-                      dict(pcr_v=True, unroll=8)):
-            var = heston_adi.solve_fused_batch(
-                2.0, 0.04, 0.3, -0.7, 0.04, 0.05, 0.02, T, K, is_call,
-                100.0, american=amer, **kw, **extra)
-            np.testing.assert_allclose(
-                np.asarray(var.price), np.asarray(base.price),
-                rtol=2e-5, atol=2e-5, err_msg=str(extra))
+            interpret=True, **kw)
+        ref = heston_adi.solve_batch(
+            2.0, 0.04, 0.3, -0.7, 0.04, 0.05, 0.02, T, K, is_call > 0.5,
+            100.0, **kw)
+        assert fus.prices.shape == (B, nS, nv)
+        # float32 kernel against the float64 twin: grid values reach ~400
+        np.testing.assert_allclose(np.asarray(fus.prices),
+                                   np.asarray(ref.prices), rtol=1e-5,
+                                   atol=5e-4)
+
+    def test_solve_fused_is_batch_of_one(self):
+        """solve_fused is the one-option view of solve_fused_batch."""
+        p = self.PARAMS._replace(n_spot=20, n_vol=10, n_time=4,
+                                 is_call=False, american=True)
+        one = heston_adi.solve_fused(p, 95.0, interpret=True)
+        book = heston_adi.solve_fused_batch(
+            p.kappa, p.theta, p.sigma, p.rho, p.v0, p.r, p.q, p.T, p.K, 0.0,
+            95.0, american=1.0, n_spot=20, n_vol=10, n_time=4,
+            interpret=True)
+        for a, b in zip(one, book):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b)[0])
 
     def test_solve_fused_batch_rejects_unknown_american_method(self):
         with pytest.raises(ValueError):

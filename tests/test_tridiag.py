@@ -170,51 +170,97 @@ class TestPCR:
         assert np.all(np.isfinite(np.asarray(g)))
 
 
-class TestPallasKernel:
-    """Runs in Pallas interpret mode on CPU; compiled on TPU."""
+class TestGtsv:
+    """The block-diagonal ``lax.linalg.tridiagonal_solve`` route: same
+    answers, vmap folding into one long system, and its custom gradient."""
 
-    def test_interpret_matches_scan(self, rng):
-        from jax.experimental.pallas import tpu as pltpu
+    @pytest.mark.parametrize("B, n", [(1, 3), (7, 40), (70, 17)])
+    def test_matches_thomas(self, rng, B, n):
+        lower = rng.uniform(-1, 1, (B, n - 1))
+        upper = rng.uniform(-1, 1, (B, n - 1))
+        diag = 4.0 + rng.uniform(0, 1, (B, n))
+        rhs = rng.uniform(-2, 2, (B, n))
+        args = tuple(map(jnp.asarray, (lower, diag, upper, rhs)))
+        np.testing.assert_allclose(np.asarray(tridiag.gtsv(*args)),
+                                   np.asarray(tridiag.thomas(*args)),
+                                   rtol=1e-12, atol=1e-12)
 
-        B, n = 70, 40
-        lower = rng.uniform(-1, 1, (B, n - 1)).astype(np.float32)
-        upper = rng.uniform(-1, 1, (B, n - 1)).astype(np.float32)
-        diag = (4.0 + rng.uniform(0, 1, (B, n))).astype(np.float32)
-        rhs = rng.uniform(-2, 2, (B, n)).astype(np.float32)
+    def test_shared_bands_and_vmap(self, rng):
+        """1-D bands shared by every system (heston_adi's v-sweep pattern),
+        and a vmapped call, both fold into one block-diagonal solve."""
+        B, n = 6, 24
+        lower = jnp.asarray(rng.uniform(-1, 1, n - 1))
+        upper = jnp.asarray(rng.uniform(-1, 1, n - 1))
+        diag = jnp.asarray(4 + rng.uniform(0, 1, n))
+        rhs = jnp.asarray(rng.uniform(-1, 1, (3, B, n)))
+        ref = tridiag.thomas(lower, diag, upper, rhs)
+        np.testing.assert_allclose(
+            np.asarray(tridiag.gtsv(lower, diag, upper, rhs)),
+            np.asarray(ref), rtol=1e-12, atol=1e-12)
+        out = jax.vmap(lambda b: tridiag.gtsv(lower, diag, upper, b))(rhs)
+        np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
+                                   rtol=1e-12, atol=1e-12)
 
-        ref = tridiag.thomas(*map(jnp.asarray, (lower, diag, upper, rhs)))
-        with pltpu.force_tpu_interpret_mode():
-            out = tridiag.thomas_pallas(
-                jnp.asarray(lower), jnp.asarray(diag), jnp.asarray(upper), jnp.asarray(rhs)
-            )
-        np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=2e-4, atol=2e-4)
+    @pytest.mark.parametrize("argnum", [0, 1, 2, 3])
+    def test_gradient_matches_thomas(self, system, argnum):
+        args = tuple(map(jnp.asarray, system))
+
+        def loss(solver, a):
+            full = list(args)
+            full[argnum] = a
+            return jnp.sum(jnp.sin(solver(*full)))
+
+        g_ref = jax.grad(lambda a: loss(tridiag.thomas, a))(args[argnum])
+        g = jax.grad(lambda a: loss(tridiag.gtsv, a))(args[argnum])
+        np.testing.assert_allclose(np.asarray(g), np.asarray(g_ref),
+                                   rtol=1e-9, atol=1e-12)
+
+    def test_gradient_under_vmap(self, rng):
+        B, n = 4, 12
+        lower = jnp.asarray(rng.uniform(-1, 0, (B, n - 1)))
+        upper = jnp.asarray(rng.uniform(-1, 0, (B, n - 1)))
+        diag = jnp.asarray(3 + rng.uniform(0, 1, (B, n)))
+        rhs = jnp.asarray(rng.normal(size=(B, n)))
+
+        def loss(solver, d):
+            return jnp.sum(jax.vmap(solver)(lower, d, upper, rhs) ** 2)
+
+        np.testing.assert_allclose(
+            np.asarray(jax.grad(lambda d: loss(tridiag.gtsv, d))(diag)),
+            np.asarray(jax.grad(lambda d: loss(tridiag.thomas, d))(diag)),
+            rtol=1e-9, atol=1e-12)
 
 
-class TestDispatcherBroadcastableBands:
-    def test_shared_bands_broadcast_to_pallas_shape(self, rng):
-        """tridiagonal_solve must accept the shared-1D-bands pattern
-        (heston_adi's v-sweep) on every dispatch path: the bands are
-        broadcast to per-system shape before the Pallas kernel."""
-        import jax.numpy as jnp
-        import numpy as np
-
-        from pde_tpu.ops import tridiag
-
+class TestDispatcher:
+    def test_shared_bands_broadcast(self, rng):
+        """tridiagonal_solve accepts the shared-1D-bands pattern
+        (heston_adi's v-sweep) and returns per-system solutions."""
         B, n = 6, 24
         lower = jnp.asarray(rng.uniform(-1, 1, n - 1))
         upper = jnp.asarray(rng.uniform(-1, 1, n - 1))
         diag = jnp.asarray(4 + rng.uniform(0, 1, n))
         rhs = jnp.asarray(rng.uniform(-1, 1, (B, n)), dtype=jnp.float32)
-
-        from jax.experimental import pallas as pl  # noqa: F401
-        from jax.experimental.pallas import tpu as pltpu
-
         ref = tridiag.thomas(lower, diag, upper, rhs)
-        # force the pallas branch; broadcast must happen inside the dispatcher
-        with pltpu.force_tpu_interpret_mode():
-            out = tridiag.tridiagonal_solve(
-                lower.astype(jnp.float32), diag.astype(jnp.float32),
-                upper.astype(jnp.float32), rhs, use_pallas=True,
-            )
+        out = tridiag.tridiagonal_solve(
+            lower.astype(jnp.float32), diag.astype(jnp.float32),
+            upper.astype(jnp.float32), rhs)
         np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
                                    rtol=2e-4, atol=1e-5)
+
+    @pytest.mark.parametrize("dtype, route", [
+        (jnp.float32, "gtsv"), (jnp.float64, "gtsv"),
+        (jnp.bfloat16, "thomas"), (jnp.float16, "thomas")])
+    @pytest.mark.parametrize("shape", [(8192,), (512, 200)])
+    def test_choice_follows_dtype(self, monkeypatch, dtype, route, shape):
+        """The route is read from the dtype alone, on every backend and
+        for long single systems as for wide batches."""
+        called = []
+        for name in ("gtsv", "thomas"):
+            monkeypatch.setattr(
+                tridiag, name,
+                lambda *a, _n=name: called.append(_n) or a[-1])
+        n = shape[-1]
+        rhs = jnp.zeros(shape, dtype)
+        tridiag.tridiagonal_solve(jnp.zeros(n - 1, dtype), jnp.ones(n, dtype),
+                                  jnp.zeros(n - 1, dtype), rhs)
+        assert called == [route]
